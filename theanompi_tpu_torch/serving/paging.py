@@ -1,0 +1,410 @@
+"""Paged KV cache: fixed-size blocks, block tables, prefix reuse —
+counterpart of ``theanompi_tpu.serving.paging``.
+
+- ``BlockPool`` — host-side allocator over the device row pool
+  ``k``/``v`` of shape ``(n_layers, n_blocks * block_size, heads,
+  head_dim)``.  Block 0 is the *trash block*: masked or inactive lanes
+  write their garbage there, so a freed and reallocated block is never
+  corrupted by a stale lane.  Refcounted: a block shared by several
+  sequences (prefix reuse) frees when the last reference drops.
+- ``PrefixCache`` — hash-consed chains of full, immutable blocks: the
+  sha1 of (parent digest, block tokens) names a block's exact content
+  and position, so requests sharing a prompt prefix map its full blocks
+  to the same physical block.  The final prompt token is never served
+  from cache (its logits must be computed).
+- ``PagedServingEngine`` — the contiguous engine's math over block
+  tables: prefill and decode write K/V rows at
+  ``table[block] * block_size + offset`` and read them back through the
+  table.  Prefill is batched and chunked: up to ``prefill_rows`` lanes
+  advance by up to ``prefill_chunk`` tokens in one padded call.  The
+  decode tick's attention is ``ops.paged_attention``: the CUDA kernel
+  on the card, its plain version on the CPU — the device decides.
+
+The pool holds the compute dtype (fp32 or bf16).  The int8 KV cache and
+the speculative-decoding verify pass are later slices of the port.
+
+Correctness contract: greedy decode through block tables picks the same
+tokens as the contiguous engine and the no-cache full recompute; a
+prefix hit changes which physical rows are read, never their values.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from theanompi_tpu_torch.device import DeviceLike
+from theanompi_tpu_torch.ops.attention import local_attention
+from theanompi_tpu_torch.ops.paged_attention import (
+    image_rows,
+    paged_decode_attention,
+)
+from theanompi_tpu_torch.serving.engine import ServingEngine
+
+TRASH_BLOCK = 0  # reserved physical block: masked/inactive writes land here
+
+_LATER_SLICE = "is a later slice of the PyTorch port"
+
+
+class BlockPool:
+    """Host-side accounting for the device block pool: block identities
+    (free list + refcounts).  The device rows live in the engine state.
+    One pool per scheduler."""
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if int(n_blocks) < 2:
+            raise ValueError(
+                f"n_blocks={n_blocks}: need at least 2 (block 0 is the "
+                "reserved trash block)"
+            )
+        self.n_blocks = int(n_blocks)
+        self.block_size = int(block_size)
+        # block 0 reserved; allocatable ids are 1..n_blocks-1, handed
+        # out lowest first
+        self._free: List[int] = list(range(self.n_blocks - 1, 0, -1))
+        self._ref: Dict[int, int] = {}
+        self.peak_used = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return (self.n_blocks - 1) - len(self._free)
+
+    def ref(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` fresh blocks (ref 1 each), or None — never a partial
+        grant, so a failed admission has nothing to roll back."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        self.peak_used = max(self.peak_used, self.n_used)
+        return out
+
+    def retain(self, block: int) -> None:
+        if self._ref.get(block, 0) < 1:
+            raise ValueError(f"retain of unallocated block {block}")
+        self._ref[block] += 1
+
+    def release(self, block: int) -> None:
+        r = self._ref.get(block, 0)
+        if r < 1:
+            raise ValueError(f"release of unallocated block {block}")
+        if r == 1:
+            del self._ref[block]
+            self._free.append(block)
+        else:
+            self._ref[block] = r - 1
+
+    def release_all(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            self.release(b)
+
+
+class PrefixCache:
+    """Hash-consed chains of immutable full blocks.
+
+    ``digest(parent_digest, block_tokens)`` → physical block id whose
+    K/V rows hold exactly those tokens at exactly those positions.  The
+    cache holds one reference per entry; ``evict_unused`` drops every
+    entry nothing else references.  Digests are sha1 over the tokens'
+    int64 bytes — content addressing must not depend on Python's salted
+    ``hash``.
+    """
+
+    def __init__(self, pool: BlockPool):
+        self.pool = pool
+        self.block_size = pool.block_size
+        self._entries: Dict[bytes, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def _digest(self, parent: bytes, tokens: Sequence[int]) -> bytes:
+        h = hashlib.sha1(parent)
+        h.update(np.asarray(tokens, dtype=np.int64).tobytes())
+        return h.digest()
+
+    def match(self, prompt: Sequence[int]) -> Tuple[List[int], int]:
+        """Longest cached chain of full blocks covering a prefix of
+        ``prompt``, each matched block retained for the caller; capped
+        so at least the final prompt token is always prefilled.
+        Returns (blocks, tokens covered)."""
+        bs = self.block_size
+        limit = (len(prompt) - 1) // bs
+        out: List[int] = []
+        parent = b""
+        for j in range(limit):
+            parent = self._digest(parent, prompt[j * bs:(j + 1) * bs])
+            block = self._entries.get(parent)
+            if block is None:
+                break
+            out.append(block)
+        for b in out:
+            self.pool.retain(b)
+        return out, len(out) * bs
+
+    def insert(self, prompt: Sequence[int], blocks: Sequence[int]) -> int:
+        """Register every full block of a just-prefilled prompt; new
+        entries retain their block on behalf of the cache.  Returns the
+        number of entries added."""
+        bs = self.block_size
+        added = 0
+        parent = b""
+        for j in range(len(prompt) // bs):
+            parent = self._digest(parent, prompt[j * bs:(j + 1) * bs])
+            if parent in self._entries:
+                continue  # identical content already cached; keep it
+            self._entries[parent] = blocks[j]
+            self.pool.retain(blocks[j])
+            added += 1
+        return added
+
+    def evict_unused(self) -> int:
+        """Free every cached block whose only reference is the cache
+        itself (the pool-exhaustion pressure valve).  Evicting a parent
+        strands its children; they have ref 1 too, so the same sweep
+        collects them."""
+        dropped = 0
+        for digest in list(self._entries):
+            block = self._entries[digest]
+            if self.pool.ref(block) == 1:
+                self.pool.release(block)
+                del self._entries[digest]
+                dropped += 1
+        return dropped
+
+
+class PagedServingEngine(ServingEngine):
+    """The serving engine over a paged KV cache.
+
+    Geometry (as in the reference):
+
+    - ``block_size`` — KV rows per block (the allocation granule).
+    - ``n_blocks`` — pool capacity including the trash block; defaults
+      to contiguous parity (``n_slots * blocks_per_seq + 1``).
+    - ``prefill_rows`` — lanes per batched prefill call (= ``n_slots``).
+    - ``prefill_chunk`` — most prompt tokens one prefill call advances a
+      lane by (None = whole prompt).  Chunks pad to ``chunk_buckets``.
+    - ``kv_dtype`` — ``'fp32'``: the pool holds the compute dtype.
+    """
+
+    is_paged = True
+
+    def __init__(
+        self,
+        model,
+        n_slots: int = 4,
+        max_len: Optional[int] = None,
+        buckets: Optional[Sequence[int]] = None,
+        block_size: int = 16,
+        n_blocks: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        kv_dtype: str = "fp32",
+        *,
+        device: DeviceLike = None,
+    ):
+        super().__init__(model, n_slots=n_slots, max_len=max_len,
+                         buckets=buckets, device=device)
+        if kv_dtype == "int8":
+            raise NotImplementedError(
+                f"kv_dtype='int8' (the int8 KV cache and its kernel) "
+                f"{_LATER_SLICE}"
+            )
+        if kv_dtype != "fp32":
+            raise ValueError(f"kv_dtype must be 'fp32', got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
+        if int(block_size) < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.block_size = int(block_size)
+        self.blocks_per_seq = math.ceil(self.max_len / self.block_size)
+        # gathered-attention width: every sequence's full table image
+        self.t_pad = self.blocks_per_seq * self.block_size
+        if n_blocks is None:
+            n_blocks = self.n_slots * self.blocks_per_seq + 1
+        self.n_blocks = int(n_blocks)
+        if self.n_blocks < 2:
+            raise ValueError(
+                f"n_blocks={self.n_blocks}: need at least one usable "
+                "block plus the reserved trash block"
+            )
+        self.prefill_rows = self.n_slots
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk}"
+                )
+        self.prefill_chunk = prefill_chunk
+        cap = prefill_chunk if prefill_chunk is not None else self.buckets[-1]
+        self.chunk_buckets = tuple(sorted(
+            {b for b in self.buckets if b <= cap} | {cap}
+        ))
+
+    # ------------------------------------------------------------------
+    # state + pool construction
+    # ------------------------------------------------------------------
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Device block pool: ``k``/``v`` of (layers, n_blocks·bs, heads,
+        head_dim).  Lengths and block tables stay host-side and ship
+        with each call."""
+        shape = (self.n_layers, self.n_blocks * self.block_size,
+                 self.n_heads, self.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=self.cache_dtype,
+                             device=self.device),
+            "v": torch.zeros(shape, dtype=self.cache_dtype,
+                             device=self.device),
+        }
+
+    def kv_block_bytes(self) -> int:
+        """Device bytes one pool block occupies across all layers (K+V)."""
+        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
+        return (2 * self.n_layers * self.block_size * self.n_heads
+                * self.head_dim * itemsize)
+
+    def make_pool(self, n_blocks: Optional[int] = None) -> BlockPool:
+        """A fresh allocator over (a prefix of) the device pool."""
+        n = int(n_blocks) if n_blocks is not None else self.n_blocks
+        if n > self.n_blocks:
+            raise ValueError(
+                f"pool of {n} blocks exceeds the device pool "
+                f"({self.n_blocks})"
+            )
+        return BlockPool(n, self.block_size)
+
+    def pick_chunk_bucket(self, n: int) -> int:
+        for b in self.chunk_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"chunk of {n} tokens exceeds the largest chunk bucket "
+            f"{self.chunk_buckets[-1]}"
+        )
+
+    def max_seq_blocks(self, total_tokens: int) -> int:
+        return math.ceil(total_tokens / self.block_size)
+
+    # ------------------------------------------------------------------
+    # host entries (state is written in place)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill_chunks(self, state: Dict[str, torch.Tensor],
+                       rows: List[Dict]) -> torch.Tensor:
+        """One batched chunked-prefill call.
+
+        ``rows`` holds up to ``prefill_rows`` dicts with ``tokens``
+        (this lane's chunk), ``p0`` (its absolute start position) and
+        ``table`` (the lane's block ids).  Writes each chunk's K/V into
+        its blocks (in place) and returns fp32 logits (prefill_rows, V);
+        row i belongs to rows[i] and is meaningful only on the lane's
+        final chunk."""
+        if not rows or len(rows) > self.prefill_rows:
+            raise ValueError(
+                f"prefill_chunks wants 1..{self.prefill_rows} rows, "
+                f"got {len(rows)}"
+            )
+        c_ = self.pick_chunk_bucket(max(len(r["tokens"]) for r in rows))
+        p_ = self.prefill_rows
+        tokens = np.zeros((p_, c_), np.int64)
+        tables = np.zeros((p_, self.blocks_per_seq), np.int32)
+        p0 = np.zeros((p_,), np.int64)
+        true_len = np.zeros((p_,), np.int64)  # stays 0 on pad lanes
+        for i, r in enumerate(rows):
+            n = len(r["tokens"])
+            tokens[i, :n] = r["tokens"]
+            tables[i, :len(r["table"])] = r["table"]
+            p0[i] = int(r["p0"])
+            true_len[i] = n
+        dev = self.device
+        tables_d = self._as_device(tables, torch.int32)
+        true_len_d = self._as_device(true_len, torch.long)
+        bs = self.block_size
+        positions = (self._as_device(p0, torch.long)[:, None]
+                     + torch.arange(c_, device=dev)[None, :])  # (P, C)
+        x = self._embed(self._as_device(tokens, torch.long), positions)
+        blk_idx = (positions // bs).clamp(max=self.blocks_per_seq - 1)
+        blk = torch.gather(tables_d.long(), 1, blk_idx)
+        # pad positions (and every position of a pad lane) write to trash
+        valid = torch.arange(c_, device=dev)[None, :] < true_len_d[:, None]
+        wr = torch.where(valid, blk * bs + positions % bs,
+                         TRASH_BLOCK).reshape(-1)
+        gr = image_rows(tables_d, bs)  # (P, t_pad)
+        # causal over absolute positions: a chunk's queries see the
+        # whole cached history plus the intra-chunk triangle
+        mask = (torch.arange(self.t_pad, device=dev)[None, None, :]
+                <= positions[:, :, None])  # (P, C, t_pad)
+        for i, blk_l in enumerate(self.model.blocks):
+            y = blk_l.ln1(x)
+            q, k, v = blk_l.attn.qkv(y)  # (P, C, H, hd)
+            pk, pv = state["k"][i], state["v"][i]
+            pk[wr] = k.reshape(-1, self.n_heads, self.head_dim).to(pk.dtype)
+            pv[wr] = v.reshape(-1, self.n_heads, self.head_dim).to(pv.dtype)
+            o = local_attention(q, pk[gr], pv[gr], mask=mask,
+                                scale=self.scale)
+            x = x + blk_l.attn.out(o)
+            x = x + blk_l.mlp(blk_l.ln2(x))
+        last = x[torch.arange(p_, device=dev), (true_len_d - 1).clamp(min=0)]
+        return self._head(last)
+
+    def verify_chunks(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"verify_chunks (speculative decoding) {_LATER_SLICE}"
+        )
+
+    @torch.no_grad()
+    def decode_step_paged(self, state: Dict[str, torch.Tensor], tokens,
+                          tables, lengths, active) -> torch.Tensor:
+        """One decode tick for every lane; host arrays in (tokens (S,),
+        tables (S, blocks_per_seq), lengths (S,) = the incoming token's
+        position, active (S,) bool), fp32 logits (S, V) out.  Inactive
+        lanes write to the trash block."""
+        dev = self.device
+        bs = self.block_size
+        tables_d = self._as_device(tables, torch.int32)
+        lengths_d = self._as_device(lengths, torch.int32)
+        active_d = self._as_device(active, torch.bool)
+        pos_idx = lengths_d.long()
+        x = self._embed(self._as_device(tokens, torch.long), pos_idx)
+        blk = torch.gather(
+            tables_d.long(), 1,
+            (pos_idx // bs).clamp(max=self.blocks_per_seq - 1)[:, None],
+        )[:, 0]
+        wr = torch.where(active_d, blk * bs + pos_idx % bs, TRASH_BLOCK)
+        for i, blk_l in enumerate(self.model.blocks):
+            y = blk_l.ln1(x)
+            q, k, v = blk_l.attn.qkv(y)  # (S, H, hd)
+            pk, pv = state["k"][i], state["v"][i]
+            pk[wr] = k.to(pk.dtype)
+            pv[wr] = v.to(pv.dtype)
+            o = paged_decode_attention(
+                q, pk, pv, tables_d, lengths_d, block_size=bs,
+                scale=self.scale,
+            ).to(y.dtype)
+            x = x + blk_l.attn.out(o)
+            x = x + blk_l.mlp(blk_l.ln2(x))
+        return self._head(x)
+
+    def greedy(self, prompt, n_new: int) -> List[int]:
+        """Greedy-decode through the full paged scheduler path."""
+        from theanompi_tpu_torch.serving.scheduler import (
+            ContinuousBatchingScheduler, Request,
+        )
+
+        sched = ContinuousBatchingScheduler(self)
+        sched.submit(
+            Request(id="greedy", prompt=list(prompt), max_new_tokens=n_new)
+        )
+        return sched.run()["greedy"]
