@@ -12,6 +12,19 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "theanompi_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "theanompi_tpu"}
+# every module of the port, by slice; each must import with jax blocked
+EXPECTED_MODULES = {
+    # slice 1: serving
+    "cuda_build", "device", "convert", "ops.layers", "ops.attention",
+    "ops.paged_attention", "models.transformer", "serving",
+    "serving.engine", "serving.paging", "serving.scheduler",
+    # slice 2: AlexNet-128 BSP training
+    "ops.lrn", "ops.pool", "ops.losses", "ops.optim", "ops.augment",
+    "data.providers", "data.loader", "runtime.config", "runtime.dist",
+    "runtime.recorder", "parallel.bucketing", "parallel.exchanger",
+    "parallel.workers", "parallel.rules", "models.base",
+    "models.alex_net", "presets", "utils.benchmark",
+}
 
 
 def _port_sources():
@@ -35,7 +48,8 @@ def test_port_imports_with_jax_blocked():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "print(len(mods))\n"
+        "from theanompi_tpu_torch import BSP\n"
+        "print(' '.join(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
@@ -43,7 +57,9 @@ def test_port_imports_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 10  # every module was walked
+    walked = {m[len("theanompi_tpu_torch."):]
+              for m in proc.stdout.split()}
+    assert EXPECTED_MODULES <= walked, EXPECTED_MODULES - walked
 
 
 @pytest.mark.parametrize(

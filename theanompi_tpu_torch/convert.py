@@ -15,6 +15,13 @@ Layout: every weight keeps the reference's layout.  Dense and
 projection weights stay ``(in, out)`` and are applied as ``x @ w`` —
 nothing is transposed — so a converted tensor equals its source
 element for element.
+
+``AlexNet`` (``alexnet_params_from_jax``) keeps the same list shape
+(``params[i]`` → ``net.{i}``); its convolution weights go from the
+reference's HWIO to torch's OIHW, and dense weights stay ``(in, out)``.
+The first dense layer needs no row permutation: the port's
+activations stay NHWC, so ``Flatten`` gives the reference's (h, w, c)
+order.
 """
 
 from __future__ import annotations
@@ -44,4 +51,15 @@ def params_from_jax(params: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for i, layer in enumerate(params):
         _flatten(f"net.{i}", layer, out)
+    return out
+
+
+def alexnet_params_from_jax(params: Sequence[Mapping]
+                            ) -> Dict[str, torch.Tensor]:
+    """The reference ``AlexNet`` params list → a ``state_dict`` for the
+    port's ``AlexNet.net`` (conv weights HWIO → OIHW)."""
+    out = params_from_jax(params)
+    for name, t in out.items():
+        if name.endswith(".w") and t.dim() == 4:
+            out[name] = t.permute(3, 2, 0, 1).contiguous()
     return out
