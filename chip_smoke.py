@@ -52,14 +52,37 @@ Phases, each of which raises on failure (nothing is caught):
    port on the card and the same step of the port on the CPU (which
    takes the plain versions), from the same weights and batch: loss
    and every updated parameter must agree.
+8. flash kernels vs plain — the flash forward (out and lse), dQ and
+   dK/dV kernels against their plain versions at the LM path's rows
+   (B·H = 64, T = 1024, D = 64, causal) and at three tail shapes
+   (T = 200, D = 32, full; T = 100, D = 64, causal; T = 130, D = 96,
+   causal: the 128-wide instance), fp32 and bf16; times of the kernel (cold L2), the plain version and
+   ``F.scaled_dot_product_attention`` (forward; forward + backward
+   minus forward: the one-call yardstick, used nowhere in the port),
+   beside the bound (bf16 products at the tensor cores' 989 TFLOP/s,
+   fp32 at 67 TFLOP/s, or the bytes at 3.35 TB/s).
+9. LM train — ``BSP().init(devices=1, ...)`` / ``rule.wait()`` for
+   ``TransformerLM`` at the serving config's full width (d_model 512, 8
+   heads, 8 layers, vocab 4096, seq_len 1024) with batch 8, bf16
+   compute, ``attn_impl='flash'``, ``exch_strategy='ar'``, seeded random
+   weights, synthetic tokens: one epoch of 32 steps and 2 validation
+   batches, NCCL with a world of 1.  The launch counts must be exactly
+   n_layers flash forwards per forward pass (32 + 2) and n_layers dQ
+   and dK/dV per step; the loss must be finite and fall.  Prints the
+   step time and tokens/s from ``utils.benchmark.measure_step_time``,
+   the host time waiting on data, and the device time by part and the
+   idle share from ``torch.profiler``.
+10. LM train oracle — one fp32 step (batch 2, seq_len 1024, full width,
+   flash) on the card and on the CPU from the same weights and batch.
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
 ``{"kernels": [...]}`` — the paged kernel's fp32 instance (what the
 serving path runs) and, for each training kernel, its bf16 instance
-(what the training path runs) summed over the shapes of one step — and
-as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
-with no result, when no card is present or the port is not importable.
+(what the training paths run) summed over the launches of one step
+(AlexNet's shapes; the LM's n_layers launches) — and as the last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
+when no card is present or the port is not importable.
 """
 
 from __future__ import annotations
@@ -78,11 +101,14 @@ import torch.nn.functional as F
 from theanompi_tpu_torch import BSP, cuda_build
 from theanompi_tpu_torch.models.alex_net import AlexNet
 from theanompi_tpu_torch.models.transformer import TransformerLM
+from theanompi_tpu_torch.ops import flash as FL
 from theanompi_tpu_torch.ops import lrn as LR
 from theanompi_tpu_torch.ops import paged_attention as PA
 from theanompi_tpu_torch.ops import pool as PO
 from theanompi_tpu_torch.runtime.dist import destroy_process_group
-from theanompi_tpu_torch.utils.benchmark import images_per_sec
+from theanompi_tpu_torch.utils.benchmark import (
+    images_per_sec, measure_step_time,
+)
 from theanompi_tpu_torch.serving import (
     ContinuousBatchingScheduler, PagedServingEngine, Request,
 )
@@ -90,6 +116,7 @@ from theanompi_tpu_torch.serving import (
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 SERVE_CFG = dict(d_model=512, n_heads=8, n_layers=8, vocab_size=4096,
                  seq_len=1024)
 SERVE_ENGINE = dict(n_slots=32, max_len=1024, block_size=32, n_blocks=257,
@@ -117,6 +144,35 @@ ORACLE_CFG = dict(batch_size=8, dropout_rate=0.0, lrn_impl="pallas",
 # other orders (TF32 off); measured on an H100: loss equal, updates 5e-6
 ORACLE_LOSS_ATOL = 1e-5
 ORACLE_UPDATE_RTOL = 1e-4  # ||update_card - update_cpu|| / ||update_cpu||
+# LM training slice: the flash kernels' rows on the LM path (B·H = 8·8)
+# and three tail shapes (T not a multiple of the 64-row tile; D < 64
+# and D = 64, the tensor-core instances at bf16, and D in (64, 128], the
+# CUDA-core instance at bf16; every fp32 instance runs on the CUDA cores)
+FLASH_SHAPES = ((64, 1024, 64, True), (8, 200, 32, False),
+                (4, 100, 64, True), (6, 130, 96, True))
+# kernel vs plain: fp32 — the same formulas, the softmax online over
+# 64-key tiles in the kernel and over the whole row in the plain
+# version, sums of up to 1024 terms in other orders (the reference's
+# own flash-vs-dense test allows 2e-5 on out and 2e-4 on gradients);
+# bf16 — one bf16 step of the plain value; lse stays fp32
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
+             torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+LSE_TOL = dict(rtol=1e-5, atol=2e-5)
+LM_CFG = dict(SERVE_CFG, batch_size=8, compute_dtype="bfloat16",
+              attn_impl="flash", exch_strategy="ar", n_synth_train=32,
+              n_synth_val=2, n_epochs=1, print_freq=4)
+LM_ORACLE_CFG = dict(SERVE_CFG, batch_size=2, attn_impl="flash",
+                     exch_strategy="ar", n_synth_train=1, n_synth_val=1)
+# card vs CPU, one fp32 LM step: 8 layers of fp32 GEMMs blocked
+# differently (TF32 off), the flash sums in other orders, the embedding
+# gradient a scatter-add with atomics on the card; the loss is a mean
+# of 2048 token losses near 8.3.  The gradients of the attention
+# projections and LayerNorm scales cancel (softmax rows, normalized
+# rows), so summation order alone moves their updates by ~1e-4 in norm:
+# the phase prints the CPU's own spread (the same step at 1 thread and
+# at the default count) beside the card-vs-CPU difference
+LM_ORACLE_LOSS_ATOL = 1e-4
+LM_ORACLE_UPDATE_RTOL = 5e-4
 
 
 def phase_environment() -> None:
@@ -141,7 +197,7 @@ def phase_environment() -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = cuda_build.build([PA.KERNEL, LR.KERNEL, PO.KERNEL])
+    paths = cuda_build.build([PA.KERNEL, LR.KERNEL, PO.KERNEL, FL.KERNEL])
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         print(f"built {name}: {path.name} ({dt:.1f} s)")
@@ -359,10 +415,10 @@ def _relu_input(rng, shape, dt, dev) -> torch.Tensor:
     return x.to(dev).to(dt)
 
 
-def _check_close(name, got, want, dt) -> float:
+def _check_close(name, got, want, dt, tol=None) -> float:
     torch.cuda.synchronize()
     g, w = got.float(), want.float()
-    tol = KERNEL_TOL[dt]
+    tol = tol or KERNEL_TOL[dt]
     bad = (g - w).abs() > tol["atol"] + tol["rtol"] * w.abs()
     if not torch.isfinite(g).all() or bool(bad.any()):
         raise AssertionError(
@@ -371,8 +427,11 @@ def _check_close(name, got, want, dt) -> float:
     return float((g - w).abs().max())
 
 
-def _bound(nbytes: float, ops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+def _bound(nbytes: float, ops: float,
+           flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
+    """(least ms, what bounds it): the bytes at the memory rate or the
+    operations at the peak for the operands' type, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flop_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -518,6 +577,8 @@ def phase_train(dev: torch.device) -> dict:
 PROFILE_STEPS = 10
 # kernel name → part of the step (lower-case substrings, first match)
 STEP_PARTS = (
+    ("flash attention (kernel)", ("flash_fwd_kernel", "flash_dq_kernel",
+                                  "flash_dkv_kernel")),
     ("lrn (kernel)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
     ("pool bwd (kernel)", ("pool_share_kernel", "pool_gather_kernel")),
     ("exchange (nccl)", ("nccl",)),
@@ -536,7 +597,7 @@ def _step_part(kernel_name: str) -> str:
     return "other (elementwise, casts, SGD, loss)"
 
 
-def phase_train_profile(model) -> dict:
+def phase_train_profile(model, label: str = "AlexNet-128") -> dict:
     """Device time of the training step by part, and the device's idle
     share, from ``torch.profiler`` over PROFILE_STEPS steps on
     pre-loaded batches (after the counted run)."""
@@ -588,7 +649,7 @@ def phase_train_profile(model) -> dict:
         print("train profile: torch.profiler recorded no device kernels "
               "(device split not measured)")
         return out
-    print(f"train profile ({PROFILE_STEPS} steps, bf16, batch "
+    print(f"{label} train profile ({PROFILE_STEPS} steps, bf16, batch "
           f"{model.global_batch}): {out['wall_ms_per_step']:.3f} ms/step "
           f"under the profiler, device busy "
           f"{out['device_busy_ms_per_step']:.3f} ms/step (idle share "
@@ -640,6 +701,236 @@ def phase_train_oracle(dev: torch.device) -> dict:
                 worst_update_rel=worst)
 
 
+def _flash_cost(bh, t, d, causal, esize) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations (the products only: 2·d flops per (query, key) pair and
+    product; causal counts the pairs on and below the diagonal) of one
+    call of each flash kernel."""
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    n, stats = bh * t * d * esize, bh * t * 4
+    return dict(flash_fwd=(4 * n + stats, 4 * d * pairs),
+                flash_dq=(5 * n + 2 * stats, 6 * d * pairs),
+                flash_dkv=(6 * n + 2 * stats, 8 * d * pairs))
+
+
+def phase_flash_kernels(dev: torch.device) -> list:
+    """The three flash kernels against their plain versions, fp32 and
+    bf16, at FLASH_SHAPES; one row per (kernel, shape, dtype)."""
+    rng = np.random.RandomState(SEED + 4)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    rows = []
+    for bh, t, d, causal in FLASH_SHAPES:
+        base = [torch.from_numpy(rng.randn(bh, t, d).astype(np.float32))
+                .to(dev) for _ in range(4)]
+        scale = FL.resolve_scale(None, d)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (a.to(dt) for a in base)
+            out_p, lse_p = FL.flash_fwd_plain(q, k, v, causal, scale)
+            delta = (do.float() * out_p.float()).sum(dim=-1)
+            bwd = (q, k, v, do, lse_p, delta, causal, scale)
+            tol = FLASH_TOL[dt]
+            out_k, lse_k = FL.flash_fwd(q, k, v, causal, scale)
+            err_f = max(_check_close("flash_fwd out", out_k, out_p, dt, tol),
+                        _check_close("flash_fwd lse", lse_k, lse_p, dt,
+                                     LSE_TOL))
+            err_q = _check_close("flash_dq", FL.flash_dq(*bwd),
+                                 FL.flash_dq_plain(*bwd), dt, tol)
+            dk_k, dv_k = FL.flash_dkv(*bwd)
+            dk_p, dv_p = FL.flash_dkv_plain(*bwd)
+            err_kv = max(_check_close("flash_dkv dk", dk_k, dk_p, dt, tol),
+                         _check_close("flash_dkv dv", dv_k, dv_p, dt, tol))
+            # one-call yardstick: SDPA over (1, B·H, T, D) views
+            q4, k4, v4, do4 = (a.view(1, bh, t, d) for a in (q, k, v, do))
+            leaves = [a.detach().requires_grad_() for a in (q4, k4, v4)]
+
+            def sdpa(q4=q4, k4=k4, v4=v4):
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, scale=scale)
+
+            def sdpa_fwd_bwd(leaves=leaves, do4=do4):
+                o = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, scale=scale)
+                return torch.autograd.grad(o, leaves, do4)
+
+            lib_err = float((sdpa()[0].float() - out_p.float()).abs().max())
+            lib_fwd = _time_ms(sdpa, flush)
+            lib_bwd = _time_ms(sdpa_fwd_bwd, flush) - lib_fwd
+            cost = _flash_cost(bh, t, d, causal, q.element_size())
+            peak = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+            for name, kern, plain, err, lib in (
+                ("flash_fwd", lambda: FL.flash_fwd(q, k, v, causal, scale),
+                 lambda: FL.flash_fwd_plain(q, k, v, causal, scale), err_f,
+                 lib_fwd),
+                ("flash_dq", lambda: FL.flash_dq(*bwd),
+                 lambda: FL.flash_dq_plain(*bwd), err_q, None),
+                ("flash_dkv", lambda: FL.flash_dkv(*bwd),
+                 lambda: FL.flash_dkv_plain(*bwd), err_kv, None),
+            ):
+                nbytes, ops = cost[name]
+                bound_ms, bound_by = _bound(nbytes, ops, peak)
+                row = dict(name=name, shape=(bh, t, d), causal=causal,
+                           dtype=str(dt)[6:], max_abs_err=err,
+                           ms=_time_ms(kern, flush),
+                           plain_ms=_time_ms(plain, flush),
+                           library_ms=lib, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=nbytes, ops=ops,
+                           sdpa_bwd_ms=lib_bwd, sdpa_max_abs_err=lib_err)
+                rows.append(row)
+                lib_s = f"{lib:.4f} ms" if lib is not None else "none"
+                print(f"{name} {row['dtype']} (bh {bh}, T {t}, D {d}, "
+                      f"causal {causal}): max|err| {err:.3e} (tol {tol}), "
+                      f"kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, sdpa {lib_s}, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+                      f"{ops / 1e9:.3f} GFLOP)")
+            print(f"  sdpa {row['dtype']} (bh {bh}, T {t}, D {d}): forward "
+                  f"{lib_fwd:.4f} ms, backward (fwd+bwd - fwd) "
+                  f"{lib_bwd:.4f} ms, max|err| vs plain {lib_err:.3e}")
+    return rows
+
+
+def _flash_per_step(rows, name, n_layers) -> dict:
+    """The LM path's instance (bf16, B·H 64, T 1024, D 64, causal) of
+    one flash kernel, times n_layers: its launches in one step."""
+    (r,) = [r for r in rows if r["name"] == name and r["dtype"] == "bfloat16"
+            and r["shape"] == FLASH_SHAPES[0][:3]]
+    return dict(
+        max_abs_err=r["max_abs_err"], ms=n_layers * r["ms"],
+        plain_ms=n_layers * r["plain_ms"], bound_ms=n_layers * r["bound_ms"],
+        bound_by=r["bound_by"],
+        library_ms=(None if r["library_ms"] is None
+                    else n_layers * r["library_ms"]),
+    )
+
+
+def _flash_launches() -> dict:
+    return dict(flash_fwd=FL.flash_fwd.launches, flash_dq=FL.flash_dq.launches,
+                flash_dkv=FL.flash_dkv.launches)
+
+
+def phase_lm_train(dev: torch.device) -> dict:
+    rule = BSP()
+    rule.init(devices=1, modelfile="theanompi_tpu_torch.models.transformer",
+              modelclass="TransformerLM", model_config=dict(LM_CFG),
+              device=dev)
+    model, rec = rule.model, rule.worker.recorder
+    if (model.world.backend, model.n_workers) != ("nccl", 1):
+        raise AssertionError(f"want an NCCL world of 1, got {model.world}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    FL.flash_fwd.launches = FL.flash_dq.launches = FL.flash_dkv.launches = 0
+    t0 = time.perf_counter()
+    rule.wait()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_launches()
+    steps, n_val = model.data.n_batch_train, model.data.n_batch_val
+    layers = model.n_layers
+    want = dict(flash_fwd=layers * (steps + n_val), flash_dq=layers * steps,
+                flash_dkv=layers * steps)
+    if (launches != want or steps != LM_CFG["n_synth_train"]
+            or n_val != LM_CFG["n_synth_val"]):
+        raise AssertionError(
+            f"flash launches over the LM run {launches}, want {want} "
+            f"({steps} steps, {n_val} validation batches, {layers} layers)")
+    costs = [r["cost"] for r in rec.history]
+    if len(costs) != steps // LM_CFG["print_freq"] or not all(
+            np.isfinite(costs)) or not np.isfinite(rec.val_history[-1]["cost"]):
+        raise AssertionError(f"bad LM training record: {rec.history}")
+    if not costs[-1] < costs[0]:
+        raise AssertionError(f"the LM loss did not fall: {costs}")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_s = measure_step_time(model, n_steps=10, warmup=2)
+    tokens = model.global_batch * int(model.config.seq_len)
+    out = dict(
+        steps=steps, val_batches=n_val, wall_s=wall,
+        run_tokens_per_s=steps * tokens / wall,
+        data_wait_s=rec.totals["wait"], calc_s=rec.totals["calc"],
+        data_wait_share=rec.totals["wait"] / wall,
+        step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+        loss_first=costs[0], loss_last=costs[-1],
+        val_loss=rec.val_history[-1]["cost"],
+        val_err5=rec.val_history[-1]["error_top5"], launches=launches,
+        peak_mem_gib=peak_gib,
+    )
+    cfg = model.config
+    print(f"LM train: TransformerLM d{cfg.d_model} h{cfg.n_heads} L{layers} "
+          f"V{cfg.vocab_size} T{cfg.seq_len} {cfg.compute_dtype} "
+          f"{cfg.attn_impl}, batch {model.global_batch}, {steps} steps + "
+          f"{n_val} val "
+          f"batches in {wall:.3f} s ({out['run_tokens_per_s']:.1f} tokens/s "
+          f"end to end); host waited on data {out['data_wait_s']:.3f} s "
+          f"({100 * out['data_wait_share']:.1f} % of the run); step "
+          f"{out['step_ms']:.3f} ms = {out['tokens_per_s']:.1f} tokens/s "
+          f"(measure_step_time); loss {costs[0]:.4f} -> {costs[-1]:.4f} "
+          f"(windows of {LM_CFG['print_freq']}: "
+          f"{[round(c, 4) for c in costs]}), val {out['val_loss']:.4f}; "
+          f"launches {launches}; peak {peak_gib:.2f} GiB")
+    out["profile"] = phase_train_profile(model, "LM")
+    return out
+
+
+def phase_lm_oracle(dev: torch.device) -> dict:
+    """One fp32 LM step (flash) on the card against the same step on
+    the CPU (plain versions), same weights and batch."""
+    card = TransformerLM(config=dict(LM_ORACLE_CFG), device=dev)
+    cpu = TransformerLM(config=dict(LM_ORACLE_CFG), device="cpu")
+    before = {k: v.detach().cpu().clone() for k, v in card.state_dict().items()}
+    cpu.load_state_dict(before)
+    rng = np.random.RandomState(SEED + 5)
+    vocab, t = LM_ORACLE_CFG["vocab_size"], LM_ORACLE_CFG["seq_len"]
+    x = rng.randint(0, vocab, size=(2, t)).astype(np.int32)
+    y = rng.randint(0, vocab, size=(2, t)).astype(np.int32)
+    launches = _flash_launches()
+    loss_card, _ = card.compile_train()(torch.tensor(x, device=dev),
+                                        torch.tensor(y, device=dev))
+    loss_card = float(loss_card)
+    ran = {k: v - launches[k] for k, v in _flash_launches().items()}
+    loss_cpu = float(cpu.compile_train()(torch.tensor(x), torch.tensor(y))[0])
+    layers = card.n_layers
+    if ran != dict(flash_fwd=layers, flash_dq=layers, flash_dkv=layers):
+        raise AssertionError(f"the card step did not run the kernels: {ran}")
+    # the CPU's own spread: the same step on one thread
+    threads = torch.get_num_threads()
+    cpu1 = TransformerLM(config=dict(LM_ORACLE_CFG), device="cpu")
+    cpu1.load_state_dict(before)
+    torch.set_num_threads(1)
+    try:
+        cpu1.compile_train()(torch.tensor(x), torch.tensor(y))
+    finally:
+        torch.set_num_threads(threads)
+    after_cpu = cpu.state_dict()
+
+    def rel_updates(after):
+        out = {}
+        for k in before:
+            upd_cpu = after_cpu[k] - before[k]
+            upd = after[k].cpu() - before[k]
+            out[k] = float((upd - upd_cpu).norm() / upd_cpu.norm())
+        return out
+
+    rel, spread = rel_updates(card.state_dict()), rel_updates(cpu1.state_dict())
+    worst_key = max(rel, key=rel.get)
+    spread_key = max(spread, key=spread.get)
+    print(f"LM train oracle (fp32, batch 2, T {t}, flash, TF32 off): loss "
+          f"card {loss_card:.6f} cpu {loss_cpu:.6f} (|diff| "
+          f"{abs(loss_card - loss_cpu):.2e}, tol {LM_ORACLE_LOSS_ATOL}); "
+          f"worst parameter update ||card-cpu||/||cpu|| {rel[worst_key]:.3e} "
+          f"({worst_key}; tol {LM_ORACLE_UPDATE_RTOL}); the CPU at 1 vs "
+          f"{threads} threads: worst {spread[spread_key]:.3e} ({spread_key})")
+    bad = [k for k, r in rel.items() if not r <= LM_ORACLE_UPDATE_RTOL]
+    if bad:
+        raise AssertionError(f"LM oracle: updates differ in norm beyond "
+                             f"{LM_ORACLE_UPDATE_RTOL}: "
+                             f"{ {k: rel[k] for k in bad} }")
+    if not abs(loss_card - loss_cpu) <= LM_ORACLE_LOSS_ATOL:
+        raise AssertionError(
+            f"LM oracle: loss card {loss_card} vs cpu {loss_cpu}")
+    return dict(loss_card=loss_card, loss_cpu=loss_cpu,
+                worst_update_rel=rel[worst_key], worst_update_key=worst_key,
+                cpu_thread_spread=spread[spread_key],
+                cpu_thread_spread_key=spread_key)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -653,9 +944,12 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(dev)
     train_rows = phase_train_kernels(dev)
+    flash_rows = phase_flash_kernels(dev)
     serve = phase_serve(dev)
     train = phase_train(dev)
     oracle = phase_train_oracle(dev)
+    lm = phase_lm_train(dev)
+    lm_oracle = phase_lm_oracle(dev)
     destroy_process_group()
     k32 = kern[torch.float32]  # the serving path's pool dtype
     kernels = [{
@@ -683,6 +977,15 @@ def main() -> int:
             "replaces": replaces, "launches": train["launches"][name],
             **_per_step(train_rows, name),
         })
+    for name, line in (("flash_fwd", 96), ("flash_dq", 179),
+                       ("flash_dkv", 209)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "theanompi_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"theanompi_tpu/ops/pallas_flash.py:{line}",
+            "launches": lm["launches"][name],
+            **_flash_per_step(flash_rows, name, SERVE_CFG["n_layers"]),
+        })
     print(json.dumps({
         "serve": {k: v for k, v in serve.items() if k != "stats"},
         "paged_decode_attention_bf16": {
@@ -690,6 +993,9 @@ def main() -> int:
         },
         "train": train, "train_oracle": oracle,
         "train_kernels": [dict(r, shape=list(r["shape"])) for r in train_rows],
+        "lm_train": lm, "lm_oracle": lm_oracle,
+        "flash_kernels": [dict(r, shape=list(r["shape"]))
+                          for r in flash_rows],
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

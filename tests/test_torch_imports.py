@@ -24,6 +24,8 @@ EXPECTED_MODULES = {
     "runtime.recorder", "parallel.bucketing", "parallel.exchanger",
     "parallel.workers", "parallel.rules", "models.base",
     "models.alex_net", "presets", "utils.benchmark",
+    # slice 3: TransformerLM BSP training with flash attention
+    "ops.flash",
 }
 
 

@@ -13,16 +13,22 @@ counterpart is easy to find:
 - ``ops.paged_attention``   — paged decode attention: a hand-written
   CUDA kernel (``csrc/paged_decode_attention.cu``) and its plain
   PyTorch version.
+- ``ops.flash``             — flash attention (forward with the row
+  log-sum-exp, FA-2 backward as dQ and dK/dV): hand-written CUDA
+  kernels (``csrc/flash_attention.cu``) behind an
+  ``autograd.Function``, and their plain versions.
 - ``ops.lrn``, ``ops.pool`` — LRN forward/backward and the max-pool
   backward: hand-written CUDA kernels (``csrc/lrn.cu``,
   ``csrc/maxpool_bwd.cu``) behind ``autograd.Function``s, and their
   plain versions.
 - ``ops.losses``, ``ops.optim``, ``ops.augment`` — cross-entropy and
   error rates, SGD and lr schedules, host crop/mirror.
-- ``models.transformer``    — ``TransformerLM`` (dense stack).
+- ``models.transformer``    — ``TransformerLM`` (dense stack; a
+  ``TpuModel`` that BSP trains and the serving engines take).
 - ``models.base``, ``models.alex_net`` — the model contract
   (``TpuModel``) and ``AlexNet``.
-- ``data``                  — ``ImageNetData`` and the prefetching loader.
+- ``data``                  — ``ImageNetData``, ``LMTextData`` and the
+  prefetching loader.
 - ``runtime``               — config, the ``torch.distributed`` group
   (NCCL on the card, gloo on the CPU), the recorder.
 - ``parallel``              — bucketing, ``BSP_Exchanger``,
@@ -46,7 +52,7 @@ Training, as in the reference's quick start::
 Every entry point runs on the card unless it is given ``device="cpu"``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = ["BSP", "__version__"]
 

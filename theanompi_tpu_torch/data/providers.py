@@ -1,6 +1,7 @@
-"""ImageNet-style data provider — the port's own copy of
-``theanompi_tpu.data.providers.ImageNetData`` and
-``_synthetic_classification`` (the reference package imports jax).
+"""Data providers — the port's own copies of
+``theanompi_tpu.data.providers.ImageNetData`` (with
+``_synthetic_classification``) and ``LMTextData`` (the reference
+package imports jax).
 
 Providers yield **global** numpy batches (``per-rank batch × world``);
 each rank takes its rows (``data.loader.rank_rows``).  Every value
@@ -13,6 +14,10 @@ kept, where the reference draws them anew for every batch.
 
 The raw-shard layout (``train/meta.json``, read by the reference's
 native ring loader) is not ported yet (ROADMAP A6).
+
+``LMTextData`` yields the reference's ``(tokens, next_tokens)`` int32
+windows for the same seed, epoch and rank: the synthetic affine walk
+with 10 % noise, the epoch shuffle and the ``rank::n`` worker slice.
 """
 
 from __future__ import annotations
@@ -25,6 +30,23 @@ from typing import Optional, Tuple
 import numpy as np
 
 from theanompi_tpu_torch.ops.augment import np_crop_mirror
+
+
+def _check_worker_shard(rank: int, n_workers: int, n_mine: int,
+                        min_needed: int, what: str) -> None:
+    """Per-worker sharding checks (as the reference's)."""
+    if not (0 <= rank < n_workers):
+        raise ValueError(f"rank {rank} outside [0, {n_workers})")
+    if n_mine < min_needed:
+        raise ValueError(
+            f"worker shard too small: {n_mine} {what} < {min_needed}; "
+            f"reduce n_workers or batch size"
+        )
+
+
+def _worker_slice(order: np.ndarray, rank: int, n_workers: int) -> np.ndarray:
+    """Worker ``rank``'s disjoint ``rank::n`` slice of a permutation."""
+    return order if n_workers == 1 else order[rank::n_workers]
 
 
 def _epoch_seed(epoch: int) -> int:
@@ -184,3 +206,103 @@ class ImageNetData:
 
     def val_batches(self):
         return (self._load(f, train=False) for f in self.val_files)
+
+
+class LMTextData:
+    """Language-modelling token provider: ``(tokens, next_tokens)``
+    int32 pairs of shape ``(batch, seq_len)``; ``batch_size`` is the
+    GLOBAL batch.  Real data is a ``tokens.npy`` (or raw uint16
+    ``tokens.bin``) corpus in ``data_dir``, cut into contiguous windows
+    of ``seq_len + 1``; without one, a synthetic stream."""
+
+    def __init__(
+        self,
+        batch_size: int,
+        seq_len: int,
+        vocab_size: int = 256,
+        data_dir: Optional[str] = None,
+        n_synth_train: int = 64,
+        n_synth_val: int = 4,
+        seed: int = 0,
+    ):
+        self.batch_size = int(batch_size)
+        self.seq_len = int(seq_len)
+        self.vocab_size = int(vocab_size)
+        self._rng = np.random.RandomState(seed)
+        tokens = self._try_load(data_dir) if data_dir else None
+        if tokens is None:
+            tokens = self._synth_markov(
+                (n_synth_train + n_synth_val) * self.batch_size
+                * (self.seq_len + 1), seed)
+            self.synthetic = True
+        else:
+            self.synthetic = False
+        win = self.seq_len + 1  # +1: targets are inputs shifted by one
+        n_windows = len(tokens) // win
+        self._windows = tokens[: n_windows * win].reshape(n_windows, win)
+        # val split in whole global batches, leaving at least one train
+        # batch
+        n_val = max(1, min(n_windows // 16, n_synth_val)) * self.batch_size
+        if n_val + self.batch_size > n_windows:
+            n_val = max(0, n_windows - self.batch_size)
+        n_val -= n_val % self.batch_size
+        self._val = self._windows[:n_val]
+        self._train = self._windows[n_val:]
+        self.n_batch_train = len(self._train) // self.batch_size
+        self.n_batch_val = len(self._val) // self.batch_size
+        if self.n_batch_train == 0:
+            raise ValueError(
+                f"corpus too small: need >= {self.batch_size * win} tokens "
+                f"for one global batch (batch {self.batch_size} x window "
+                f"{win}), have {n_windows * win}"
+            )
+        self._order = np.arange(len(self._train))
+        self._worker_rank, self._n_workers = 0, 1
+
+    def shard_for_worker(self, rank: int, n_workers: int) -> None:
+        """Disjoint per-worker window stream (the async rules')."""
+        n_mine = len(range(rank, len(self._train), n_workers))
+        _check_worker_shard(rank, n_workers, n_mine, self.batch_size,
+                            "windows")
+        self._worker_rank, self._n_workers = int(rank), int(n_workers)
+        self.n_batch_train = n_mine // self.batch_size
+
+    def _try_load(self, data_dir: str):
+        for name, dtype in (("tokens.npy", None), ("tokens.bin", np.uint16)):
+            p = os.path.join(data_dir, name)
+            if os.path.isfile(p):
+                t = np.load(p) if dtype is None else np.fromfile(p, dtype=dtype)
+                return t.astype(np.int32) % self.vocab_size
+        return None
+
+    def _synth_markov(self, n: int, seed: int) -> np.ndarray:
+        """The affine walk ``clean[i] = (start + i·a) mod v`` (next token
+        = ``(t + a) mod v``, learnable) with 10 % uniform replacement
+        noise, drawn as the reference draws it."""
+        rng = np.random.RandomState(seed)
+        v = self.vocab_size
+        a = int(rng.randint(1, v))
+        clean = (int(rng.randint(0, v)) + np.arange(n, dtype=np.int64) * a) % v
+        noise = rng.rand(n) < 0.1
+        out = np.where(noise, rng.randint(0, v, size=n), clean)
+        return out.astype(np.int32)
+
+    def shuffle(self, epoch=None) -> None:
+        if epoch is not None:
+            rng = np.random.RandomState(_epoch_seed(epoch))
+            self._order = rng.permutation(len(self._train))
+        else:
+            self._order = self._rng.permutation(len(self._train))
+
+    def train_batches(self):
+        bs = self.batch_size
+        order = _worker_slice(self._order, self._worker_rank, self._n_workers)
+        for i in range(self.n_batch_train):
+            w = self._train[order[i * bs: (i + 1) * bs]]
+            yield w[:, :-1].copy(), w[:, 1:].copy()
+
+    def val_batches(self):
+        bs = self.batch_size
+        for i in range(self.n_batch_val):
+            w = self._val[i * bs: (i + 1) * bs]
+            yield w[:, :-1].copy(), w[:, 1:].copy()

@@ -1,6 +1,7 @@
 """Transformer layers — counterpart of ``theanompi_tpu.ops.attention``
-(dense path) and of ``parallel.ring_attention.local_attention``'s XLA
-branch.
+(dense path) and of ``parallel.ring_attention.local_attention`` (the
+``attn_impl`` dispatch: ``'xla'`` is the plain path here, ``'flash'``
+the flash kernels of ``ops.flash``).
 
 Activations are ``(B, T, D)``; token inputs ``(B, T)`` int64/int32.
 Numerics follow the reference: LayerNorm statistics in fp32 (eps 1e-5),
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from theanompi_tpu_torch.ops.flash import flash_attention
 from theanompi_tpu_torch.ops.layers import Dense, dot, normal_init
 
 NEG_INF = -1e30  # finite mask value: exp() stays NaN-free on masked rows
@@ -94,14 +96,27 @@ class PositionalEmbedding(nn.Module):
         return x + self.pos[: x.shape[1]].to(x.dtype)
 
 
+ATTN_IMPLS = ("xla", "flash")
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain softmax attention, q ``(B, Tq, H, D)``, k/v ``(B, Tk, H,
-    D)`` → ``(B, Tq, H, D)`` in q's dtype; scores and softmax in fp32,
-    probabilities rounded to v's dtype before the second product.
-    ``causal`` masks ``k > q`` positions; ``mask`` (B, Tq, Tk) bool
-    (True = attend) masks explicitly, e.g. by absolute positions."""
+                    mask: Optional[torch.Tensor] = None,
+                    attn_impl: str = "xla") -> torch.Tensor:
+    """Softmax attention, q ``(B, Tq, H, D)``, k/v ``(B, Tk, H, D)`` →
+    ``(B, Tq, H, D)`` in q's dtype.  ``attn_impl='flash'`` runs
+    ``ops.flash.flash_attention`` (Tq == Tk, no ``mask``); ``'xla'`` the
+    plain path: scores and softmax in fp32, probabilities rounded to v's
+    dtype before the second product.  ``causal`` masks ``k > q``
+    positions; ``mask`` (B, Tq, Tk) bool (True = attend) masks
+    explicitly, e.g. by absolute positions."""
+    if attn_impl == "flash":
+        if mask is not None:
+            raise ValueError("attn_impl='flash' takes no explicit mask")
+        return flash_attention(q, k, v, causal, scale)
+    if attn_impl != "xla":
+        raise ValueError(
+            f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
@@ -134,12 +149,19 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 class MultiHeadAttention(nn.Module):
     """Dense causal multi-head self-attention (no sequence or tensor
-    parallelism in this slice)."""
+    parallelism in this slice).  ``attn_impl``: 'xla' (the plain path)
+    or 'flash' (the flash kernels) for the full-sequence forward; the
+    serving engines' cached paths call ``local_attention`` themselves."""
 
     def __init__(self, d_model: int, n_heads: int, causal: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 attn_impl: str = "xla"):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl must be 'xla' or 'flash', got {attn_impl!r}")
+        self.attn_impl = attn_impl
         if d_model % n_heads:
             raise ValueError(
                 f"d_model {d_model} not divisible by n_heads {n_heads}"
@@ -178,7 +200,8 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv(x)
-        return self.out(local_attention(q, k, v, causal=self.causal))
+        return self.out(local_attention(q, k, v, causal=self.causal,
+                                        attn_impl=self.attn_impl))
 
 
 class TransformerBlock(nn.Module):
@@ -187,14 +210,15 @@ class TransformerBlock(nn.Module):
     def __init__(self, d_model: int, n_heads: int, mlp_ratio: int = 4,
                  causal: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 attn_impl: str = "xla"):
         super().__init__()
         dm = d_model * int(mlp_ratio)
         self.compute_dtype = compute_dtype
         self.ln1 = LayerNorm(d_model, device=device)
         self.attn = MultiHeadAttention(
             d_model, n_heads, causal=causal, compute_dtype=compute_dtype,
-            device=device,
+            device=device, attn_impl=attn_impl,
         )
         self.ln2 = LayerNorm(d_model, device=device)
         # mlp_in keeps its fp32 product for the bias add and the GELU;
