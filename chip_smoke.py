@@ -74,29 +74,60 @@ Phases, each of which raises on failure (nothing is caught):
    idle share from ``torch.profiler``.
 10. LM train oracle — one fp32 step (batch 2, seq_len 1024, full width,
    flash) on the card and on the CPU from the same weights and batch.
+11. wire kernels vs plain — the four block-quantization kernels (int8
+   round-to-nearest, int8 stochastic rounding with a fixed seed word,
+   fp16 with a block scale, dequantize of int8 and fp16 payloads)
+   against their plain versions, exact, at the shapes one bucket of 4
+   MB gives them at a world of 2 (leg 1 (2, 2048, 256), leg 2 (2048,
+   256)) and at AlexNet-128's largest bucket from its bucketing plan;
+   then timed (cold L2) at every shape of the LM's step at a world of
+   2, beside the bytes bound.  No single PyTorch call computes a
+   per-256-block amax quantization, so there is no yardstick.
+12. LM train at a world of 2 on the one card — two processes (this
+   script with ``--bsp2-rank``) with ``RANK``, ``WORLD_SIZE=2``,
+   ``LOCAL_RANK=0``, ``LOCAL_WORLD_SIZE=2``, each running
+   ``BSP().init(devices=2, ...)`` / ``rule.wait()`` for
+   ``TransformerLM`` at the LM phase's width, batch 8 per rank, bf16,
+   flash, with the default wire ``int8_sr``: 8 steps and a validation
+   batch.  Checks: both ranks run gloo on ``cuda:0``; the quantize and
+   dequantize launches equal what the bucket plan predicts (2 of each
+   per live bucket and step); the loss is finite and falls; every
+   parameter is bitwise equal across the ranks; on one step the first
+   bucket's ``int8_sr`` mean lies within 2·max|g|/127 of the fp32
+   ``all_reduce`` mean.  Then two steps each of ``int8`` with error
+   feedback and of ``fp16s`` (their launches checked the same way, the
+   parameters still equal).  Prints step ms, the wire's share of the
+   step and peak memory per rank.
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
 ``{"kernels": [...]}`` — the paged kernel's fp32 instance (what the
-serving path runs) and, for each training kernel, its bf16 instance
-(what the training paths run) summed over the launches of one step
-(AlexNet's shapes; the LM's n_layers launches) — and as the last line
+serving path runs), for each training kernel its bf16 instance (what
+the training paths run) summed over the launches of one step
+(AlexNet's shapes; the LM's n_layers launches), and for each wire
+kernel its launches of one LM step at a world of 2 — and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no card is present or the port is not importable.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
+import os
 import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+import torch.distributed as dist
 
 from theanompi_tpu_torch import BSP, cuda_build
 from theanompi_tpu_torch.models.alex_net import AlexNet
@@ -105,6 +136,10 @@ from theanompi_tpu_torch.ops import flash as FL
 from theanompi_tpu_torch.ops import lrn as LR
 from theanompi_tpu_torch.ops import paged_attention as PA
 from theanompi_tpu_torch.ops import pool as PO
+from theanompi_tpu_torch.parallel import quantize as Q
+from theanompi_tpu_torch.parallel.exchanger import (
+    BSP_Exchanger, blocks_per_shard,
+)
 from theanompi_tpu_torch.runtime.dist import destroy_process_group
 from theanompi_tpu_torch.utils.benchmark import (
     images_per_sec, measure_step_time,
@@ -173,6 +208,22 @@ LM_ORACLE_CFG = dict(SERVE_CFG, batch_size=2, attn_impl="flash",
 # at the default count) beside the card-vs-CPU difference
 LM_ORACLE_LOSS_ATOL = 1e-4
 LM_ORACLE_UPDATE_RTOL = 5e-4
+# the wire at a world of 2 on one card
+WIRE_WORLD = 2
+WIRE_SEED = 0x9E3779B9  # the SR check's fixed seed word
+# operations per element (bounds): amax, divide, round, clamp; the SR
+# hash adds ~14 integer operations; fp16 a convert; dequantize 2
+WIRE_OPS = dict(block_quant_int8=6, block_quant_int8_sr=20,
+                block_quant_fp16=4, block_dequant=2)
+BSP2_CFG = dict(SERVE_CFG, batch_size=8, compute_dtype="bfloat16",
+                attn_impl="flash", n_synth_train=8, n_synth_val=1,
+                n_epochs=1, print_freq=4)
+# after the default int8_sr run: two steps of each other kernel's path
+BSP2_MORE = (("int8+ef", dict(exch_strategy="int8", error_feedback=True)),
+             ("fp16s", dict(exch_strategy="fp16s", error_feedback=False)))
+BSP2_MORE_STEPS = 2
+BSP2_TIMEOUT_S = 600
+BSP2_DEVICE = "cuda:0"  # both ranks on the one card
 
 
 def phase_environment() -> None:
@@ -197,7 +248,8 @@ def phase_environment() -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = cuda_build.build([PA.KERNEL, LR.KERNEL, PO.KERNEL, FL.KERNEL])
+    paths = cuda_build.build([PA.KERNEL, LR.KERNEL, PO.KERNEL, FL.KERNEL,
+                              Q.KERNEL])
     dt = time.perf_counter() - t0
     for name, path in paths.items():
         print(f"built {name}: {path.name} ({dt:.1f} s)")
@@ -571,6 +623,7 @@ def phase_train(dev: torch.device) -> dict:
           f"{TRAIN_CFG['print_freq']}: {[round(c, 4) for c in costs]}), val "
           f"{out['val_loss']:.4f}; launches {launches}")
     out["profile"] = phase_train_profile(model)
+    out["wire_sizes"] = _wire_sizes(model)
     return out
 
 
@@ -579,6 +632,12 @@ PROFILE_STEPS = 10
 STEP_PARTS = (
     ("flash attention (kernel)", ("flash_fwd_kernel", "flash_dq_kernel",
                                   "flash_dkv_kernel")),
+    ("wire quantize/dequantize (kernel)", ("quant_int8_kernel",
+                                           "quant_int8_sr_kernel",
+                                           "quant_fp16_kernel",
+                                           "dequant_int8_kernel",
+                                           "dequant_fp16_kernel")),
+    ("memcpy (host<->card; gloo stages the wire)", ("memcpy",)),
     ("lrn (kernel)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
     ("pool bwd (kernel)", ("pool_share_kernel", "pool_gather_kernel")),
     ("exchange (nccl)", ("nccl",)),
@@ -606,7 +665,8 @@ def phase_train_profile(model, label: str = "AlexNet-128") -> dict:
 
     from theanompi_tpu_torch.data.loader import rank_rows, to_device
 
-    batches = [to_device(rank_rows(b, 0, 1), model.device)
+    batches = [to_device(rank_rows(b, model.rank, model.n_workers),
+                         model.device)
                for b, _ in zip(model.data.train_batches(), range(2))]
     for i in range(3):
         model.train_fn(*batches[i % 2])
@@ -650,7 +710,7 @@ def phase_train_profile(model, label: str = "AlexNet-128") -> dict:
               "(device split not measured)")
         return out
     print(f"{label} train profile ({PROFILE_STEPS} steps, bf16, batch "
-          f"{model.global_batch}): {out['wall_ms_per_step']:.3f} ms/step "
+          f"{model.batch_size}/rank): {out['wall_ms_per_step']:.3f} ms/step "
           f"under the profiler, device busy "
           f"{out['device_busy_ms_per_step']:.3f} ms/step (idle share "
           f"{out['device_idle_share']:.3f}), "
@@ -866,6 +926,7 @@ def phase_lm_train(dev: torch.device) -> dict:
           f"{[round(c, 4) for c in costs]}), val {out['val_loss']:.4f}; "
           f"launches {launches}; peak {peak_gib:.2f} GiB")
     out["profile"] = phase_train_profile(model, "LM")
+    out["wire_sizes"] = _wire_sizes(model)
     return out
 
 
@@ -931,7 +992,388 @@ def phase_lm_oracle(dev: torch.device) -> dict:
                 cpu_thread_spread_key=spread_key)
 
 
+def _wire_sizes(model) -> list:
+    """Flat fp32 lengths of the exchange's buckets for ``model``'s
+    parameters (its bucket size, the reference's order)."""
+    order = model.exchange_order
+    ex = BSP_Exchanger("int8_sr", bucket_bytes=int(
+        float(model.config.exchange_bucket_mb) * (1 << 20)))
+    return ex.unit_sizes([model.params[i] for i in order],
+                         [model.param_names[i] for i in order])
+
+
+def _wire_launch_rows(sizes, strategy: str) -> dict:
+    """Rows of every launch one step gives each wire kernel at a world
+    of WIRE_WORLD: per live bucket, leg 1 quantizes (world·nb) rows and
+    leg 2 nb rows, and both legs dequantize (world·nb) rows."""
+    quant, deq = [], []
+    for n in sizes:
+        nb = blocks_per_shard(n, WIRE_WORLD, strategy)
+        if nb is not None:
+            quant += [WIRE_WORLD * nb, nb]
+            deq += [WIRE_WORLD * nb, WIRE_WORLD * nb]
+    return dict(quant=quant, dequant=deq)
+
+
+def _wire_input(rows: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """Gradient-like fp32 blocks: normal values with block magnitudes
+    over six decades, a zero block, and a block of half-way ties
+    (amax 127 pins the int8 scale at 1, the other values k + 0.5)."""
+    x = torch.randn(rows, Q.BLOCK, generator=gen, device=dev)
+    x *= 10.0 ** torch.empty(rows, 1, device=dev).uniform_(-6, 0,
+                                                           generator=gen)
+    x[0] = 0.0
+    if rows > 1:
+        x[1] = (torch.arange(Q.BLOCK, device=dev) - 128) + 0.5
+        x[1, 0] = 127.0
+    return x
+
+
+_WIRE_QUANT = (
+    ("block_quant_int8", Q.quantize_int8, Q.quantize_int8_plain),
+    ("block_quant_int8_sr", lambda x: Q.quantize_int8_sr(x, WIRE_SEED),
+     lambda x: Q.quantize_int8_sr_plain(x, WIRE_SEED)),
+    ("block_quant_fp16", Q.quantize_fp16, Q.quantize_fp16_plain),
+)
+
+
+def _wire_exact(x: torch.Tensor, where: str) -> dict:
+    """Every wire kernel against its plain version on ``x``: payloads,
+    scales and dequantized values must be equal.  Returns name → max
+    |kernel − plain| (0 when equal)."""
+    errs = {}
+    for name, kern, plain in _WIRE_QUANT:
+        qk, sk = kern(x)
+        qp, sp = plain(x)
+        dk, dp = Q.dequantize(qk, sk), Q.dequantize_plain(qk, sk)
+        torch.cuda.synchronize()
+        if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+            raise AssertionError(
+                f"{name} at {tuple(x.shape)} ({where}): kernel != plain, "
+                f"{int((qk != qp).sum())} payload and {int((sk != sp).sum())}"
+                f" scale elements differ")
+        if not torch.equal(dk, dp):
+            raise AssertionError(f"block_dequant of {name}'s payload at "
+                                 f"{tuple(x.shape)} ({where}): kernel != "
+                                 "plain")
+        errs[name] = max(errs.get(name, 0.0),
+                         float((qk.float() - qp.float()).abs().max()),
+                         float((sk - sp).abs().max()))
+        errs["block_dequant"] = max(errs.get("block_dequant", 0.0),
+                                    float((dk - dp).abs().max()))
+    return errs
+
+
+def _wire_bytes(name: str, n: int) -> int:
+    """Bytes each input read once and each output written once: fp32
+    in, int8 (fp16) payload and one fp32 scale per 256 out; dequantize
+    reads the int8 payload of the int8_sr wire."""
+    if name == "block_quant_fp16":
+        return 4 * n + 2 * n + n // 64
+    return 4 * n + n + n // 64
+
+
+def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
+    """The four wire kernels against their plain versions, exact, at
+    the LM's 4 MB bucket (world 2) and at AlexNet-128's largest bucket,
+    then their times per call and per LM step at a world of 2."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    errs = {}
+    n_lm = 4 << 20 >> 2  # one 4 MB bucket of fp32
+    nb_lm = blocks_per_shard(n_lm, WIRE_WORLD, "int8_sr")
+    n_alex = max(alex_sizes)
+    nb_alex = blocks_per_shard(n_alex, WIRE_WORLD, "int8_sr")
+    for where, nb in (("LM 4 MB bucket", nb_lm),
+                      (f"AlexNet-128 largest bucket, {n_alex} fp32", nb_alex)):
+        for shape in ((WIRE_WORLD, nb, Q.BLOCK), (nb, Q.BLOCK)):
+            x = _wire_input(WIRE_WORLD * nb if len(shape) == 3 else nb,
+                            gen, dev).view(shape)
+            for k, v in _wire_exact(x, where).items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            print(f"wire kernels at {shape} ({where}): int8, int8_sr (seed "
+                  f"{WIRE_SEED:#x}), fp16 payloads, scales and dequantized "
+                  "values equal to the plain versions")
+    step_rows = _wire_launch_rows(lm_sizes, "int8_sr")
+    per_rows = {}
+    big = WIRE_WORLD * nb_lm  # the per-call shape: one bucket's leg 1
+    for r in sorted(set(step_rows["quant"]) | set(step_rows["dequant"])
+                    | {big}):
+        x = _wire_input(r, gen, dev)
+        q8, s8 = Q.quantize_int8(x)
+        calls = {
+            "block_quant_int8": (lambda x=x: Q.quantize_int8(x),
+                                 lambda x=x: Q.quantize_int8_plain(x)),
+            "block_quant_int8_sr": (
+                lambda x=x: Q.quantize_int8_sr(x, WIRE_SEED),
+                lambda x=x: Q.quantize_int8_sr_plain(x, WIRE_SEED)),
+            "block_quant_fp16": (lambda x=x: Q.quantize_fp16(x),
+                                 lambda x=x: Q.quantize_fp16_plain(x)),
+            "block_dequant": (lambda q=q8, s=s8: Q.dequantize(q, s),
+                              lambda q=q8, s=s8: Q.dequantize_plain(q, s)),
+        }
+        per_rows[r] = {name: (_time_ms(k, flush), _time_ms(p, flush))
+                       for name, (k, p) in calls.items()}
+    rows = []
+    for name in ("block_quant_int8", "block_quant_int8_sr",
+                 "block_quant_fp16", "block_dequant"):
+        launch_rows = step_rows["dequant" if name == "block_dequant"
+                                else "quant"]
+        ms = sum(per_rows[r][name][0] for r in launch_rows)
+        plain_ms = sum(per_rows[r][name][1] for r in launch_rows)
+        nbytes = sum(_wire_bytes(name, r * Q.BLOCK) for r in launch_rows)
+        ops = sum(WIRE_OPS[name] * r * Q.BLOCK for r in launch_rows)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        call_bound, _ = _bound(_wire_bytes(name, big * Q.BLOCK),
+                               WIRE_OPS[name] * big * Q.BLOCK)
+        row = dict(name=name, max_abs_err=errs[name], ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None, launches_per_step=len(launch_rows),
+                   bytes_per_step=nbytes, call_rows=big,
+                   call_ms=per_rows[big][name][0],
+                   call_plain_ms=per_rows[big][name][1],
+                   call_bound_ms=call_bound)
+        rows.append(row)
+        print(f"{name}: max|err| {row['max_abs_err']:.1e} (exact); per call "
+              f"at ({big}, 256): kernel {row['call_ms']:.4f} ms, plain "
+              f"{row['call_plain_ms']:.4f} ms, bound {call_bound:.4f} ms; "
+              f"per LM step at world {WIRE_WORLD} ({len(launch_rows)} "
+              f"launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B); library "
+              "none (no one PyTorch call quantizes per 256-block amax)")
+    return rows
+
+
+def _params_digest(model) -> str:
+    h = hashlib.sha1()
+    for p in model.params:
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bsp2_rank(out_path: str) -> int:
+    """One rank of phase 12 (``--bsp2-rank OUT``): the LM's BSP run at a
+    world of 2 with the default wire, then the checks' measurements;
+    writes a JSON record to OUT."""
+    from theanompi_tpu_torch.data.loader import rank_rows, to_device
+
+    rule = BSP()
+    rule.init(devices=WIRE_WORLD,
+              modelfile="theanompi_tpu_torch.models.transformer",
+              modelclass="TransformerLM", model_config=dict(BSP2_CFG))
+    model, rec = rule.model, rule.worker.recorder
+    dev = model.device
+    res = dict(rank=model.rank, world=model.n_workers,
+               backend=model.world.backend, device=str(dev),
+               strategy=model.config.exch_strategy,
+               wire_sizes=_wire_sizes(model))
+    torch.cuda.reset_peak_memory_stats(dev)
+    Q.reset_launches()
+    FL.flash_fwd.launches = FL.flash_dq.launches = FL.flash_dkv.launches = 0
+    t0 = time.perf_counter()
+    rule.wait()
+    torch.cuda.synchronize()
+    res.update(wall_s=time.perf_counter() - t0, launches=Q.launches(),
+               flash_launches=_flash_launches(),
+               steps=model.data.n_batch_train,
+               costs=[r["cost"] for r in rec.history],
+               val_cost=rec.val_history[-1]["cost"],
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               params_sha1=_params_digest(model))
+    step_s = measure_step_time(model, n_steps=5, warmup=1)
+    # the wire alone on one step's gradients, and the SR bound on its
+    # first bucket against the fp32 all_reduce mean
+    order = model.exchange_order
+    names = [model.param_names[i] for i in order]
+    x, y = to_device(rank_rows(next(iter(model.data.train_batches())),
+                               model.rank, model.n_workers), dev)
+    loss, _ = model.loss_and_metrics(x, y, True)
+    grads = torch.autograd.grad(loss, model.params)
+    g = [grads[i] for i in order]
+    ex = model.exchanger
+    seeds = torch.randint(0, 1 << 32, (len(ex.unit_sizes(g, names)), 2),
+                          generator=model.wire_generator).tolist()
+    ex.reduce_grads(g, names, seeds)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ex.reduce_grads(g, names, seeds)
+    torch.cuda.synchronize()
+    wire_s = (time.perf_counter() - t0) / 5
+    first = g[0].float()
+    red = ex.reduce_grads([first], names[:1], seeds[:1])[0]
+    mean = first.clone()
+    dist.all_reduce(mean)
+    mean /= model.n_workers
+    gmax = first.abs().max().reshape(1)
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX)
+    res.update(step_ms=1e3 * step_s, wire_ms=1e3 * wire_s,
+               wire_share=wire_s / step_s,
+               sr_check=dict(name=names[0], n=first.numel(),
+                             max_err=float((red - mean).abs().max()),
+                             atol=float(2.0 * gmax[0] / 127.0),
+                             inexact=int((red != mean).sum()),
+                             sha1=hashlib.sha1(red.cpu().numpy().tobytes())
+                             .hexdigest()))
+    res["profile"] = phase_train_profile(
+        model, f"LM world {WIRE_WORLD} rank {model.rank}")
+    res["more"] = {}
+    for label, over in BSP2_MORE:
+        model.config.update(over)
+        model.train_fn = None
+        model.compile_train()
+        Q.reset_launches()
+        for c in range(BSP2_MORE_STEPS):
+            loss, _ = model.train_iter(c, rec)
+        torch.cuda.synchronize()
+        res["more"][label] = dict(launches=Q.launches(), loss=float(loss),
+                                  strategy=model.config.exch_strategy,
+                                  params_sha1=_params_digest(model))
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    destroy_process_group()
+    return 0
+
+
+def _want_launches(sizes, strategy: str, steps: int, ef: bool) -> dict:
+    """Launch counts the bucket plan predicts over ``steps`` steps: 2
+    quantizes and 2 dequantizes per live bucket and step, and with
+    error feedback one more dequantize (the leg-1 image)."""
+    live = sum(blocks_per_shard(n, WIRE_WORLD, strategy) is not None
+               for n in sizes)
+    quant = {"int8_sr": "quantize_int8_sr", "pallas_int8_sr":
+             "quantize_int8_sr", "fp16s": "quantize_fp16",
+             "pallas_fp16s": "quantize_fp16"}.get(strategy, "quantize_int8")
+    want = dict(quantize_int8=0, quantize_int8_sr=0, quantize_fp16=0,
+                dequantize=(3 if ef else 2) * live * steps)
+    want[quant] = 2 * live * steps
+    return want
+
+
+def phase_lm_bsp2(dev: torch.device) -> dict:
+    """Two ranks of the LM on this card over gloo; see phase 12."""
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bsp2_")
+    env = dict(os.environ, WORLD_SIZE=str(WIRE_WORLD), LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE=str(WIRE_WORLD), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(WIRE_WORLD)]
+    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(WIRE_WORLD)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(WIRE_WORLD):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--bsp2-rank", outs[r]],
+                    env=dict(env, RANK=str(r)), stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + BSP2_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        for r, path in enumerate(logs):
+            with open(path) as f:
+                print(f"--- rank {r} (exit {procs[r].returncode}):\n"
+                      + f.read()[-4000:])
+        raise AssertionError("a rank of the two-rank LM run failed")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0 = res[0]
+    for r in res:
+        if (r["backend"], r["device"], r["world"], r["strategy"]) != (
+                "gloo", BSP2_DEVICE, WIRE_WORLD, "int8_sr"):
+            raise AssertionError(f"rank {r['rank']}: {r['backend']} on "
+                                 f"{r['device']}, world {r['world']}, "
+                                 f"{r['strategy']}")
+    sizes, steps = r0["wire_sizes"], r0["steps"]
+    want = _want_launches(sizes, "int8_sr", steps, ef=False)
+    layers = SERVE_CFG["n_layers"]
+    want_flash = dict(flash_fwd=layers * (steps + 1), flash_dq=layers * steps,
+                      flash_dkv=layers * steps)
+    for r in res:
+        if (r["launches"] != want or r["flash_launches"] != want_flash
+                or r["steps"] != BSP2_CFG["n_synth_train"]):
+            raise AssertionError(
+                f"rank {r['rank']}: launches {r['launches']} "
+                f"{r['flash_launches']}, want {want} {want_flash} "
+                f"({r['steps']} steps, {len(sizes)} buckets)")
+        costs = r["costs"]
+        if (len(costs) != steps // BSP2_CFG["print_freq"]
+                or not all(np.isfinite(costs))
+                or not np.isfinite(r["val_cost"]) or not costs[-1] < costs[0]):
+            raise AssertionError(f"rank {r['rank']}: bad or flat loss "
+                                 f"{costs}, val {r['val_cost']}")
+        sr = r["sr_check"]
+        if not sr["max_err"] <= sr["atol"] or sr["inexact"] == 0:
+            raise AssertionError(f"rank {r['rank']}: int8_sr mean vs the "
+                                 f"fp32 mean: {sr}")
+    if len({r["params_sha1"] for r in res}) != 1 or len(
+            {r["sr_check"]["sha1"] for r in res}) != 1:
+        raise AssertionError("the ranks' parameters (or reduced gradients) "
+                             "differ after the int8_sr run")
+    for label, over in BSP2_MORE:
+        strategy = over["exch_strategy"]
+        w = _want_launches(sizes, strategy, BSP2_MORE_STEPS,
+                           ef=bool(over.get("error_feedback")))
+        got = [r["more"][label] for r in res]
+        if any(g["launches"] != w or g["strategy"] != strategy
+               or not np.isfinite(g["loss"]) for g in got):
+            raise AssertionError(f"{label}: {got}, want launches {w}")
+        if len({g["params_sha1"] for g in got}) != 1:
+            raise AssertionError(f"{label}: the ranks' parameters differ")
+    sr = r0["sr_check"]
+    live = sum(blocks_per_shard(n, WIRE_WORLD, "int8_sr") is not None
+               for n in sizes)
+    print(f"LM BSP at world {WIRE_WORLD} on one card (gloo, cuda:0, "
+          f"int8_sr, bf16, flash, batch {BSP2_CFG['batch_size']}/rank): "
+          f"{steps} steps + 1 val batch; two processes in {wall:.1f} s; "
+          f"launches per rank {r0['launches']} = plan ({len(sizes)} "
+          f"buckets, {live} live); loss {[round(c, 4) for c in r0['costs']]}"
+          f", val {r0['val_cost']:.4f}; parameters bitwise equal across the "
+          f"ranks")
+    for r in res:
+        print(f"  rank {r['rank']}: step {r['step_ms']:.3f} ms, wire "
+              f"{r['wire_ms']:.3f} ms ({100 * r['wire_share']:.1f} % of the "
+              f"step), run {r['wall_s']:.3f} s, peak {r['peak_mem_gib']:.2f}"
+              " GiB")
+    prof = r0["profile"]
+    if prof["device_idle_share"] is not None:
+        print(f"  rank 0 under torch.profiler ({prof['steps']} steps): "
+              f"{prof['wall_ms_per_step']:.3f} ms/step, its own device work "
+              f"{prof['device_busy_ms_per_step']:.3f} ms/step (idle share "
+              f"of its timeline {prof['device_idle_share']:.3f}; the other "
+              f"rank's kernels are not on it), "
+              f"{prof['kernels_per_step']:.0f} kernels/step")
+        for part, ms in prof["kernel_ms_per_step"].items():
+            print(f"    {part}: {ms:.4f} ms/step")
+    print(f"  int8_sr mean of {sr['name']} ({sr['n']} fp32) vs the fp32 "
+          f"all_reduce mean: max|err| {sr['max_err']:.3e} <= 2·max|g|/127 = "
+          f"{sr['atol']:.3e} ({sr['inexact']} elements inexact)")
+    for label, _ in BSP2_MORE:
+        g = r0["more"][label]
+        print(f"  {label}: {BSP2_MORE_STEPS} steps, launches {g['launches']}"
+              f", loss {g['loss']:.4f}, parameters equal across the ranks")
+    return dict(wall_s=wall, ranks=res, want_launches=want)
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--bsp2-rank":
+        return _bsp2_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA card", file=sys.stderr)
@@ -950,7 +1392,9 @@ def main() -> int:
     oracle = phase_train_oracle(dev)
     lm = phase_lm_train(dev)
     lm_oracle = phase_lm_oracle(dev)
+    wire_rows = phase_wire_kernels(dev, lm["wire_sizes"], train["wire_sizes"])
     destroy_process_group()
+    bsp2 = phase_lm_bsp2(dev)
     k32 = kern[torch.float32]  # the serving path's pool dtype
     kernels = [{
         "name": "paged_decode_attention",
@@ -986,6 +1430,23 @@ def main() -> int:
             "launches": lm["launches"][name],
             **_flash_per_step(flash_rows, name, SERVE_CFG["n_layers"]),
         })
+    # launches: the default int8_sr run for its quantize and the
+    # dequantize; the int8 (error feedback) and fp16s runs for theirs
+    r0 = bsp2["ranks"][0]
+    wire_launches = dict(
+        block_quant_int8=r0["more"]["int8+ef"]["launches"]["quantize_int8"],
+        block_quant_int8_sr=r0["launches"]["quantize_int8_sr"],
+        block_quant_fp16=r0["more"]["fp16s"]["launches"]["quantize_fp16"],
+        block_dequant=r0["launches"]["dequantize"])
+    for row, line in zip(wire_rows, (107, 134, 207, 218)):
+        kernels.append({
+            "name": row["name"], "route": "cuda",
+            "source": "theanompi_tpu_torch/csrc/block_quant.cu",
+            "replaces": f"theanompi_tpu/parallel/quantize.py:{line}",
+            "launches": wire_launches[row["name"]],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+        })
     print(json.dumps({
         "serve": {k: v for k, v in serve.items() if k != "stats"},
         "paged_decode_attention_bf16": {
@@ -996,6 +1457,7 @@ def main() -> int:
         "lm_train": lm, "lm_oracle": lm_oracle,
         "flash_kernels": [dict(r, shape=list(r["shape"]))
                           for r in flash_rows],
+        "wire_kernels": wire_rows, "lm_bsp2": bsp2,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ EXPECTED_MODULES = {
     "models.alex_net", "presets", "utils.benchmark",
     # slice 3: TransformerLM BSP training with flash attention
     "ops.flash",
+    # slice 4: the block-quantized gradient wire
+    "parallel.quantize",
 }
 
 

@@ -219,10 +219,18 @@ def test_unported_keys_raise(key, value, exc, item):
 
 
 def test_default_block_strategy_raises_at_compile():
-    """The reference's default wire, int8_sr, is kept as the default and
-    raises until the block-quantize kernels land."""
+    """The reference's default wire, int8_sr, is the default and
+    compiles; what still raises at compile is the reference's own scope
+    check: error feedback over a lossless or cast wire, or under avg."""
     cfg = {k: v for k, v in CFG.items() if k != "exch_strategy"}
     m = TransformerLM(config=cfg, device="cpu")
     assert m.config.exch_strategy == "int8_sr"
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        m.compile_train()
+    x, y = (torch.from_numpy(a) for a in _batch())
+    loss, _ = m.compile_train()(x, y)
+    assert m.exchanger.strategy == "int8_sr" and np.isfinite(float(loss))
+    for over in (dict(exch_strategy="ar"), dict(exch_strategy="bf16"),
+                 dict(sync_mode="avg")):
+        m = TransformerLM(config=dict(cfg, error_feedback=True, **over),
+                          device="cpu")
+        with pytest.raises(ValueError, match="error_feedback"):
+            m.compile_train()

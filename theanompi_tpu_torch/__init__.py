@@ -30,9 +30,15 @@ counterpart is easy to find:
 - ``data``                  — ``ImageNetData``, ``LMTextData`` and the
   prefetching loader.
 - ``runtime``               — config, the ``torch.distributed`` group
-  (NCCL on the card, gloo on the CPU), the recorder.
-- ``parallel``              — bucketing, ``BSP_Exchanger``,
-  ``BSP_Worker`` and the ``BSP`` rule.
+  (NCCL on the card, gloo on the CPU and for ranks that share a card),
+  the recorder.
+- ``parallel``              — bucketing, ``BSP_Exchanger`` (fp32, cast
+  and block-quantized wires, error feedback), ``BSP_Worker`` and the
+  ``BSP`` rule.
+- ``parallel.quantize``     — block quantization of the wire (int8
+  round-to-nearest, int8 stochastic rounding, fp16 with a block scale,
+  dequantize): hand-written CUDA kernels (``csrc/block_quant.cu``) and
+  their plain versions.
 - ``presets``, ``utils.benchmark`` — ``alexnet-bsp``; step time and
   images/s.
 - ``convert``               — JAX parameter pytrees → this port's state.
@@ -52,7 +58,7 @@ Training, as in the reference's quick start::
 Every entry point runs on the card unless it is given ``device="cpu"``.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = ["BSP", "__version__"]
 

@@ -14,17 +14,26 @@ XLA step: each process is one rank of a ``torch.distributed`` group
 (``runtime.dist``) holding a full replica of the model on its device;
 ``compile_train`` builds the step as a Python function that runs
 forward and backward eagerly, reduces the gradients through
-``BSP_Exchanger`` (one ``all_reduce`` per bucket) and applies the
-optimizer in place.  ``batch_size`` is per rank and the providers
-deliver global batches (``batch_size × world``); rank r trains on
-rows ``[r·b, (r+1)·b)``, the reference's ``dp`` sharding order.
+``BSP_Exchanger`` (one wire per bucket) and applies the optimizer in
+place.  ``batch_size`` is per rank and the providers deliver global
+batches (``batch_size × world``); rank r trains on rows ``[r·b,
+(r+1)·b)``, the reference's ``dp`` sharding order.  The exchange sees
+the parameters in the reference's pytree order (layer index, then the
+keys sorted), so buckets and their quantization blocks hold the
+elements the reference's hold.
 
 Ported: ``sync_mode`` 'cdd' and 'avg', ``exchange_overlap`` 'bucket'
-and 'leaf', strategies ``ar``/``bf16``/``fp16``, ``grad_accum=1``.
-Not yet (each raises with its ROADMAP item): ZeRO-1, error feedback,
-in-DAG issue, the two-level wire (A9), gradient accumulation and
-clipping (A4), on-device augmentation (A3), the block wires (B3),
-checkpoints (A6).
+and 'leaf', every wire strategy (``ar``, the cast wires ``bf16`` /
+``fp16`` and the block wires ``fp16s``, ``int8``, ``int8_sr`` and their
+``pallas_*`` names), ``error_feedback`` on the block wires,
+``grad_accum=1``.  The stochastic-rounding wires take two seed words
+per bucket and step from a generator of their own, seeded per rank (the
+reference folds the rank into its step key).  Error feedback keeps a
+per-rank fp32 residual per parameter in ``opt_state['ef_wire']``, in
+the exchange's order (the reference's recurrence: send ``g + residual``, keep what the wire's
+first leg dropped).  Not yet (each raises with its ROADMAP item):
+ZeRO-1, in-DAG issue, the two-level wire (A9), gradient accumulation
+and clipping (A4), on-device augmentation (A3), checkpoints (A6).
 """
 
 from __future__ import annotations
@@ -53,7 +62,8 @@ COMMON_DEFAULTS = dict(
     nesterov=False,
     weight_decay=1e-4,
     sync_mode="cdd",  # 'cdd' = gradient reduce; 'avg' = param averaging
-    exch_strategy="ar",  # 'ar' | 'bf16' | 'fp16' (block wires: B3)
+    exch_strategy="ar",  # 'ar' | 'bf16' | 'fp16' | block: 'int8_sr', …
+    error_feedback=False,
     prefetch_depth=2,
     grad_clip_norm=None,
     print_freq=40,
@@ -73,8 +83,6 @@ COMMON_DEFAULTS = dict(
 def _refuse_unported(cfg, n_workers: int) -> None:
     checks = {
         "zero1 (ROADMAP A9)": bool(cfg.zero1) and n_workers > 1,
-        "error_feedback (ROADMAP A9, B3)": bool(
-            cfg.get("error_feedback", False)),
         "exchange_overlap='indag' (ROADMAP A9)":
             cfg.exchange_overlap == "indag",
         "dcn_shape (ROADMAP A9)": bool(cfg.dcn_shape),
@@ -92,6 +100,32 @@ def _refuse_unported(cfg, n_workers: int) -> None:
     if cfg.sync_mode not in ("cdd", "avg"):
         raise ValueError(
             f"sync_mode must be 'cdd' or 'avg', got {cfg.sync_mode!r}")
+
+
+def _check_error_feedback(cfg) -> None:
+    """The reference's scope for error feedback: a lossy block wire
+    under cdd (its tp/pp and extra-axis refusals have no counterpart
+    in a data-parallel-only port)."""
+    unsupported = {
+        "exch_strategy 'ar' (lossless wire)": cfg.exch_strategy == "ar",
+        "cast wires (block strategies only)":
+            cfg.exch_strategy in ("bf16", "fp16"),
+        "sync_mode != 'cdd'": cfg.sync_mode != "cdd",
+        "zero1": bool(cfg.zero1),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise ValueError(f"error_feedback does not support: {', '.join(bad)}")
+
+
+def _reference_order(names):
+    """Indices of ``names`` (``"{layer}.{key}…"``) in the reference's
+    pytree flattening order: list indices numerically, dict keys
+    sorted."""
+    def key(i):
+        return tuple((int(p), "") if p.isdigit() else (-1, p)
+                     for p in names[i].split("."))
+    return sorted(range(len(names)), key=key)
 
 
 class TpuModel:
@@ -118,6 +152,9 @@ class TpuModel:
         # rank into its step key)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.seed) * 1_000_003 + self.rank)
+        # stochastic-rounding seed words of the wire: one stream per rank
+        self.wire_generator = torch.Generator().manual_seed(
+            (int(cfg.seed) * 1_000_003 + self.rank) ^ 0x5EED_0000_0000)
         self.data = None
         self.net: Optional[nn.Module] = None
         self.input_shape: Optional[Tuple[int, ...]] = None
@@ -150,6 +187,7 @@ class TpuModel:
                 m.reset_parameters(gen)
         self.param_names = [n for n, _ in self.net.named_parameters()]
         self.params = [p for _, p in self.net.named_parameters()]
+        self.exchange_order = _reference_order(self.param_names)
         self.optimizer = optim_lib.from_config(cfg)
         self.opt_state = self.optimizer.init(self.params)
         self.n_params = count_params(self.net)
@@ -193,32 +231,68 @@ class TpuModel:
     # ---- contract: compile_train / compile_val --------------------------
     def compile_train(self):
         """Build the training step ``train_fn(x, y) -> (loss, err)``:
-        forward + backward, the exchange, the optimizer update (in
-        place).  Loss and error are the means over the ranks, as device
-        scalars (no host sync)."""
+        forward + backward, the exchange (with the error-feedback
+        residual when configured), the optimizer update (in place).
+        Loss and error are the means over the ranks, as device scalars
+        (no host sync)."""
         cfg = self.config
+        ef = bool(cfg.error_feedback)
+        if ef:
+            _check_error_feedback(cfg)
+            if "ef_wire" not in self.opt_state:
+                self.opt_state["ef_wire"] = [
+                    torch.zeros_like(self.params[i], dtype=torch.float32)
+                    for i in self.exchange_order]
+        else:
+            self.opt_state.pop("ef_wire", None)
         bucket_bytes = (None if cfg.exchange_overlap == "leaf" else
                         int(float(cfg.exchange_bucket_mb) * (1 << 20)))
         exchanger = BSP_Exchanger(
             strategy=cfg.exch_strategy, group=self.world.group,
             bucket_bytes=bucket_bytes)
-        params, names = self.params, self.param_names
+        params, order = self.params, self.exchange_order
+        ex_params = [params[i] for i in order]
+        names = [self.param_names[i] for i in order]
+        n_wires = len(exchanger.unit_sizes(ex_params, names))
         opt, avg = self.optimizer, cfg.sync_mode == "avg"
+
+        def seeds():
+            """Two uint32 words per wire for this rank and call."""
+            if not exchanger.needs_seeds:
+                return None
+            return torch.randint(0, 1 << 32, (n_wires, 2),
+                                 generator=self.wire_generator).tolist()
+
+        def in_param_order(ex):
+            out = [None] * len(params)
+            for k, i in enumerate(order):
+                out[i] = ex[k]
+            return out
 
         def train_fn(x, y):
             loss, (err, _) = self.loss_and_metrics(x, y, True)
             grads = torch.autograd.grad(loss, params)
             if not avg:
-                grads = exchanger.reduce_grads(grads, names)
-                opt.update(params, grads, self.opt_state)
+                g = [grads[i] for i in order]
+                if ef:
+                    res = self.opt_state["ef_wire"]
+                    send = [gi.float() + e for gi, e in zip(g, res)]
+                    g, rt = exchanger.reduce_with_residual(send, names,
+                                                           seeds())
+                    for e, s_, r in zip(res, send, rt):
+                        e.copy_(s_ - r)
+                else:
+                    g = exchanger.reduce_grads(g, names, seeds())
+                opt.update(params, in_param_order(g), self.opt_state)
             else:
                 opt.update(params, grads, self.opt_state)
                 with torch.no_grad():
-                    for p, a in zip(params,
-                                    exchanger.average_params(params, names)):
+                    for p, a in zip(ex_params, exchanger.average_params(
+                            ex_params, names, seeds())):
                         p.copy_(a)
-                    vel = self.opt_state["velocity"]
-                    for v, a in zip(vel, exchanger.average_params(vel, names)):
+                    vel = [self.opt_state["velocity"][i] for i in order]
+                    for v, a in zip(vel, exchanger.average_params(
+                            vel, names, seeds())):
                         v.copy_(a)
             m = self._mean_over_ranks(torch.stack([loss.detach(), err]))
             return m[0], m[1]

@@ -7,11 +7,15 @@ trains it like any model::
 
     from theanompi_tpu_torch import BSP
     rule = BSP()
-    rule.init(devices=1, modelfile="theanompi_tpu_torch.models.transformer",
-              modelclass="TransformerLM",
-              model_config=dict(attn_impl="flash", exch_strategy="ar"))
+    rule.init(devices=2, modelfile="theanompi_tpu_torch.models.transformer",
+              modelclass="TransformerLM", model_config=dict(attn_impl="flash"))
     rule.wait()
 
+(one process per rank, each started with ``RANK``/``WORLD_SIZE``/
+``MASTER_ADDR``/``MASTER_PORT``; two ranks on one card also set
+``LOCAL_RANK=0`` and ``LOCAL_WORLD_SIZE=2`` and run gloo), with the
+reference's default wire, ``int8_sr``: the block-quantized exchange
+with stochastic rounding (``parallel.exchanger``),
 and the serving engines take the same object.  Its ``net`` is the
 reference's layer list one for one::
 
@@ -27,9 +31,7 @@ vocabulary.
 
 Not ported yet, and raising: sequence, tensor and pipeline parallelism
 and MoE blocks (``sp``/``tp``/``pp``/``moe_experts``, ``ValueError``,
-ROADMAP A13) and ``remat`` (``NotImplementedError``, ROADMAP A12); the
-block-quantized exchange strategies, the reference's default
-``int8_sr`` among them, raise in ``compile_train`` (ROADMAP B3).
+ROADMAP A13) and ``remat`` (``NotImplementedError``, ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ class TransformerLM(TpuModel):
         n_synth_train=32,
         n_synth_val=2,
         val_top5=True,
-        exch_strategy="int8_sr",  # the reference's default (ROADMAP B3)
+        exch_strategy="int8_sr",  # the reference's default
     )
 
     def __init__(self, config: Optional[dict] = None,

@@ -65,7 +65,7 @@ def from_config(cfg) -> Optimizer:
                    weight_decay=float(cfg.weight_decay))
     if name in ("adam", "adamw", "lars", "lamb"):
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: ROADMAP A3 (slice 3)")
+            f"optimizer {name!r} is not ported yet: ROADMAP A3")
     raise ValueError(f"unknown optimizer {name!r} (sgd|adam|adamw|lars|lamb)")
 
 

@@ -1,0 +1,269 @@
+"""Block quantization of the gradient wire: the CUDA kernels' wrappers
+and their plain versions.
+
+Counterpart of ``theanompi_tpu.parallel.quantize`` (``quantize_blocks``,
+``quantize_blocks_fp16``, ``dequantize_blocks`` and the Pallas kernels
+``_quant_kernel``, ``_quant_sr_kernel``, ``_quant_fp16_kernel``,
+``_dequant_kernel``).  Every function takes ``(…, BLOCK)`` inputs: one
+quantization block per row of 256 fp32 elements, any number of rows,
+and one fp32 scale per row.
+
+- ``quantize_int8`` — ``q = round(x / safe)`` (half to even), the
+  scale ``s = amax / 127``, ``safe = s if s > 0 else 1``.
+- ``quantize_int8_sr`` — stochastic rounding: ``q = clip(floor(x /
+  safe + u), -127, 127)`` with the reference kernel's counter-hash
+  dither ``u = hash(idx·0x9E3779B9 + seed)`` (uint32 arithmetic, top 24
+  bits as a fraction of 2²⁴), ``idx`` the element's index in the
+  call's flattened input, ``seed`` a uint32 word.  The reference's
+  Pallas kernel draws that word with ``jax.random.bits(key, (1, 1),
+  uint32)``; here the caller passes it, and the same word gives the
+  same payload.
+- ``quantize_fp16`` — ``q = fp16(x / safe)`` with ``s = amax / 256``
+  (``FP16_CAP``): every block lands in fp16's normal range.
+- ``dequantize`` — ``float(q) · s`` for an int8 or fp16 payload.
+
+The device of the input decides what runs: a CUDA tensor launches the
+hand-written kernel (``csrc/block_quant.cu``) or raises; a CPU tensor
+takes the plain version (``*_plain``).  Nothing falls back from the
+card to the plain version.  Each wrapper counts its kernel launches in
+``.launches``.
+
+Numerics, the same on both routes: the scale is the IEEE quotient
+``amax / cap`` (the reference's XLA path and source text; its Pallas
+kernel under interpret mode multiplies by ``fp32(1/127)`` instead and
+can land one ulp away), ``x / safe`` is an IEEE division, and
+round-to-nearest is half to even.  The plain versions divide by a
+tensor, never by a Python number: on the card torch turns a division by
+a scalar into a multiplication by its reciprocal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from theanompi_tpu_torch import cuda_build
+
+KERNEL = "block_quant"
+BLOCK = 256  # elements per quantization block (one fp32 scale each)
+INT8_CAP = 127.0
+FP16_CAP = 256.0
+_M32 = 0xFFFFFFFF
+_PAYLOADS = (torch.int8, torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and what the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def _check_input(what: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.dim() < 1 or x.shape[-1] != BLOCK:
+        raise ValueError(f"{what}: want float32 (…, {BLOCK}), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+
+
+def _scale(x: torch.Tensor, cap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row ``(s, safe)``: ``s = amax / cap`` as an IEEE division and
+    the divide-safe ``where(s > 0, s, 1)``."""
+    amax = x.abs().amax(dim=-1)
+    s = amax / torch.full_like(amax, cap)
+    return s, torch.where(s > 0, s, torch.ones_like(s))
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a · b mod 2³²`` for int64 ``a`` in [0, 2³²): the product taken
+    in 16-bit halves of ``a`` so that no int64 product overflows."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def hash_uniform(counter: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_hash_uniform``: xor-shift/multiply avalanche of
+    a uint32 counter (int64 values in [0, 2³²)), top 24 bits → fp32 in
+    [0, 1)."""
+    x = counter
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _sr_dither(n: int, seed: int, device=None) -> torch.Tensor:
+    """``u`` for elements ``0..n-1`` of one call: ``hash(idx·0x9E3779B9
+    + seed)`` with uint32 wraparound."""
+    idx = torch.arange(n, dtype=torch.int64, device=device) & _M32
+    return hash_uniform((_mul32(idx, 0x9E3779B9) + (int(seed) & _M32)) & _M32)
+
+
+def quantize_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, 256) fp32 → ((…, 256) int8 round-to-nearest-even, (…,) fp32)."""
+    _check_input("quantize_int8", x)
+    s, safe = _scale(x, INT8_CAP)
+    q = torch.round(x / safe[..., None]).clamp_(-INT8_CAP, INT8_CAP)
+    return q.to(torch.int8), s
+
+
+def quantize_int8_sr_plain(x: torch.Tensor, seed: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, 256) fp32 → ((…, 256) int8 stochastically rounded, (…,) fp32)."""
+    _check_input("quantize_int8_sr", x)
+    s, safe = _scale(x, INT8_CAP)
+    u = _sr_dither(x.numel(), seed, x.device).view(x.shape)
+    q = torch.floor(x / safe[..., None] + u).clamp_(-INT8_CAP, INT8_CAP)
+    return q.to(torch.int8), s
+
+
+def quantize_fp16_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, 256) fp32 → ((…, 256) fp16, (…,) fp32), amax mapped to 256."""
+    _check_input("quantize_fp16", x)
+    s, safe = _scale(x, FP16_CAP)
+    return (x / safe[..., None]).to(torch.float16), s
+
+
+def dequantize_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 or fp16 (…, 256) payload and (…,) scales → fp32 (…, 256)."""
+    _check_payload(q, s)
+    return q.to(torch.float32) * s[..., None]
+
+
+def _check_payload(q: torch.Tensor, s: torch.Tensor) -> None:
+    if (q.dtype not in _PAYLOADS or q.dim() < 1 or q.shape[-1] != BLOCK
+            or s.dtype != torch.float32 or s.shape != q.shape[:-1]
+            or s.device != q.device):
+        raise ValueError(
+            f"dequantize: want an int8 or float16 (…, {BLOCK}) payload and "
+            f"float32 (…,) scales on one device; got {q.dtype} "
+            f"{tuple(q.shape)} on {q.device}, {s.dtype} {tuple(s.shape)} on "
+            f"{s.device}")
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load(KERNEL)
+    ptr, rows = ctypes.c_void_p, ctypes.c_long
+    for name, n_ptr, extra in (
+        ("block_quant_int8", 3, []),
+        ("block_quant_int8_sr", 3, [ctypes.c_uint32]),
+        ("block_quant_fp16", 3, []),
+        ("block_dequant_int8", 3, []),
+        ("block_dequant_fp16", 3, []),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * n_ptr + [rows] + extra + [ptr]
+        fn.restype = ctypes.c_int
+    lib.block_quant_error_string.argtypes = [ctypes.c_int]
+    lib.block_quant_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _route(x: torch.Tensor, what: str) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what} runs on cuda (kernel) or cpu (plain version), "
+                     f"not {x.device}")
+
+
+def _launch(name: str, rows: int, ptrs, *extra) -> None:
+    lib = _library()
+    stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
+    rc = getattr(lib, name)(*[p.data_ptr() for p in ptrs], rows, *extra,
+                            stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.block_quant_error_string(rc).decode()}")
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, starting on a 16-byte boundary (the kernels load
+    16 bytes a lane)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _quantize(name: str, x: torch.Tensor, payload: torch.dtype, *extra):
+    x = _dense(x)
+    q = torch.empty(x.shape, dtype=payload, device=x.device)
+    s = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    rows = x.numel() // BLOCK
+    if rows:
+        _launch(name, rows, (x, q, s), *extra)
+    return q, s, rows > 0
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Round-to-nearest int8 blocks; see the module docstring."""
+    if not _route(x, "quantize_int8"):
+        return quantize_int8_plain(x)
+    _check_input("quantize_int8", x)
+    q, s, ran = _quantize("block_quant_int8", x, torch.int8)
+    quantize_int8.launches += ran
+    return q, s
+
+
+def quantize_int8_sr(x: torch.Tensor, seed: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stochastically rounded int8 blocks from a uint32 ``seed`` word."""
+    if not _route(x, "quantize_int8_sr"):
+        return quantize_int8_sr_plain(x, seed)
+    _check_input("quantize_int8_sr", x)
+    q, s, ran = _quantize("block_quant_int8_sr", x, torch.int8,
+                          int(seed) & _M32)
+    quantize_int8_sr.launches += ran
+    return q, s
+
+
+def quantize_fp16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp16 blocks with the block amax mapped to ``FP16_CAP``."""
+    if not _route(x, "quantize_fp16"):
+        return quantize_fp16_plain(x)
+    _check_input("quantize_fp16", x)
+    q, s, ran = _quantize("block_quant_fp16", x, torch.float16)
+    quantize_fp16.launches += ran
+    return q, s
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """fp32 reconstruction of an int8 or fp16 payload."""
+    if not _route(q, "dequantize"):
+        return dequantize_plain(q, s)
+    _check_payload(q, s)
+    q, s = _dense(q), s.contiguous()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rows = q.numel() // BLOCK
+    if rows:
+        name = ("block_dequant_int8" if q.dtype == torch.int8
+                else "block_dequant_fp16")
+        _launch(name, rows, (q, s, out))
+        dequantize.launches += 1
+    return out
+
+
+quantize_int8.launches = 0
+quantize_int8_sr.launches = 0
+quantize_fp16.launches = 0
+dequantize.launches = 0
+WRAPPERS = (quantize_int8, quantize_int8_sr, quantize_fp16, dequantize)
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    """Wrapper name → its launch count."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

@@ -5,11 +5,18 @@ ranks of a ``torch.distributed`` group).
 ``init_process_group`` joins (or forms) the default group and returns
 the ``World`` this process trains in:
 
-- NCCL when the device is a CUDA card, gloo on the CPU;
+- NCCL when each rank has a CUDA card of its own, gloo on the CPU;
 - under a launcher (``RANK`` and ``WORLD_SIZE`` in the environment,
   with ``MASTER_ADDR``/``MASTER_PORT``) it joins that group through
   ``env://``; a rank on the card takes device ``LOCAL_RANK`` (default:
   the rank);
+- ranks that share a card: when the launcher's ``LOCAL_WORLD_SIZE``
+  (torchrun's variable) exceeds ``torch.cuda.device_count()``, rank
+  ``LOCAL_RANK`` takes ``cuda:(LOCAL_RANK % count)`` and the group is
+  gloo, because NCCL does not put two ranks on one device.  Gloo takes
+  the CUDA tensors of the exchange's collectives as they are.  This
+  follows from the count of cards alone and is decided before any
+  collective;
 - a single process with no launcher environment forms a world of 1 on
   its own, through an in-process ``HashStore`` (no port, no file).
 
@@ -43,8 +50,15 @@ class World:
 _GROUPS: Dict[str, Any] = {}
 
 
+def _shares_card() -> bool:
+    """More local ranks than cards (``LOCAL_WORLD_SIZE`` > the count)."""
+    local_world = os.environ.get("LOCAL_WORLD_SIZE")
+    return (local_world is not None
+            and int(local_world) > torch.cuda.device_count())
+
+
 def _backend_for(dev: torch.device) -> str:
-    return "nccl" if dev.type == "cuda" else "gloo"
+    return "nccl" if dev.type == "cuda" and not _shares_card() else "gloo"
 
 
 def init_process_group(device: DeviceLike = None) -> World:
@@ -55,6 +69,8 @@ def init_process_group(device: DeviceLike = None) -> World:
     if dev.type == "cuda" and env_world is not None and (
             device is None or torch.device(device).index is None):
         local = int(os.environ.get("LOCAL_RANK", env_rank or 0))
+        if _shares_card():
+            local %= torch.cuda.device_count()
         dev = torch.device("cuda", local)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)

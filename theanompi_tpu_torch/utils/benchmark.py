@@ -5,8 +5,9 @@
 The step is timed on a few pre-loaded batches, so data loading is not
 in the number; on the card the window ends in
 ``torch.cuda.synchronize``, so it measures the device, not the enqueue.
-The model's parameters, velocity, step counter and dropout stream are
-restored afterwards: a probe does not move the training state.
+The model's parameters, velocity, error-feedback residual, step
+counter, dropout stream and wire seed stream are restored afterwards:
+a probe does not move the training state.
 The comm-fraction probe and scaling efficiency are not ported yet
 (ROADMAP A7).
 """
@@ -38,8 +39,10 @@ def measure_step_time(model, n_steps: int = 20, warmup: int = 3,
     with torch.no_grad():
         saved_p = [p.detach().clone() for p in model.params]
         saved_v = [v.clone() for v in model.opt_state["velocity"]]
+        saved_ef = [e.clone() for e in model.opt_state.get("ef_wire", ())]
     saved_step = model.opt_state["step"]
     saved_gen = model.generator.get_state()
+    saved_wire = model.wire_generator.get_state()
     try:
         for i in range(warmup):
             fn(*batches[i % len(batches)])
@@ -55,8 +58,11 @@ def measure_step_time(model, n_steps: int = 20, warmup: int = 3,
                 p.copy_(s)
             for v, s in zip(model.opt_state["velocity"], saved_v):
                 v.copy_(s)
+            for e, s in zip(model.opt_state.get("ef_wire", ()), saved_ef):
+                e.copy_(s)
         model.opt_state["step"] = saved_step
         model.generator.set_state(saved_gen)
+        model.wire_generator.set_state(saved_wire)
 
 
 def images_per_sec(model, n_steps: int = 20) -> float:
