@@ -8,14 +8,21 @@ Phases, each of which raises on failure (nothing is caught):
    limit as ``nvidia-smi`` reports them, ``nvcc``, whether ``triton``
    imports; TF32 is switched off for every fp32 product.
 2. build — every CUDA kernel of the port (paged decode attention, LRN,
-   max-pool backward), from ``csrc/``, one ``nvcc`` each, all at once.
+   max-pool backward, flash attention, block quantization), from
+   ``csrc/``, one ``nvcc`` each, all at once.
 3. kernel vs plain (serving) — the paged decode attention kernel
    against its plain PyTorch version at the serving path's full width
    (32 lanes, 8 heads, head_dim 64, block 32, 32-entry tables, lengths
    0..1023), fp32 and bf16 pools; times of the kernel, the plain
    version and ``F.scaled_dot_product_attention`` over the pre-gathered
    image (the one-call yardstick, used nowhere in the port), beside the
-   bound.
+   bound.  Then the int8 kernel (int8 pool of 967 blocks, the fp32
+   pool's bytes; rows quantized by ``quantize_rows``; the same lengths)
+   against its plain version (dequantized image, atol 1e-5; also on a
+   K pool that starts on an odd byte, and at head_dim 37 and 128), timed
+   beside its bound and SDPA over the image dequantized beforehand (not
+   the same function: no single PyTorch call attends int8 rows with
+   per-(row, head) scales, so its ``library_ms`` is null).
 4. kernels vs plain (training) — LRN forward and backward (size 5) on
    AlexNet-128's two LRN inputs at batch 128, (128,32,32,96) and
    (128,15,15,256), and the max-pool backward on its three 3×3/2
@@ -34,7 +41,18 @@ Phases, each of which raises on failure (nothing is caught):
    greedy requests, prompts of 16..256 tokens, 32 new tokens each.
    The kernel's launch count over this run must equal n_layers × decode
    ticks, and every request's tokens must equal greedy decoding by the
-   no-cache full-recompute forward on the card.
+   no-cache full-recompute forward on the card.  Then the same 8
+   requests from the int8 KV cache (``kv_dtype='int8'``, 967 blocks in
+   the fp32 pool's bytes): int8 kernel launches = n_layers × decode
+   ticks and no fp32 launch; tokens equal to the CPU int8 engine's on
+   the same weights (a divergence passes only at a decision margin
+   below 1e-3); the reference's ``kv_quant`` probe (capacity ratio >= 2,
+   greedy agreement with the fp32 run >= 0.8); the pool's
+   ``torch.cuda.memory_allocated`` against n_blocks × kv_block_bytes.
+   Then 4 seeded sampled requests (T 0.8, top-k 50) on the fp32 pool,
+   interleaved with 2 greedy ones and then each alone: the same tokens
+   both times, every token inside its row's top-k, tokens equal to the
+   CPU's.
 6. train — ``BSP().init(devices=1, ...)`` / ``rule.wait()`` for
    AlexNet-128 (1000 classes, batch 128, bf16 compute,
    ``lrn_impl='pallas'``, ``pool_grad='pallas'``; seeded random
@@ -101,12 +119,13 @@ Phases, each of which raises on failure (nothing is caught):
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
-``{"kernels": [...]}`` — the paged kernel's fp32 instance (what the
-serving path runs), for each training kernel its bf16 instance (what
-the training paths run) summed over the launches of one step
-(AlexNet's shapes; the LM's n_layers launches), and for each wire
-kernel its launches of one LM step at a world of 2 — and as the last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
+``{"kernels": [...]}`` (12 hand-written kernels) — the paged kernel's
+fp32 instance (what the fp32 serving run runs) and the int8 kernel
+(launches from the int8 serving run), for each training kernel its
+bf16 instance (what the training paths run) summed over the launches
+of one step (AlexNet's shapes; the LM's n_layers launches), and for
+each wire kernel its launches of one LM step at a world of 2 — and as
+the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no card is present or the port is not importable.
 """
 
@@ -145,8 +164,9 @@ from theanompi_tpu_torch.utils.benchmark import (
     images_per_sec, measure_step_time,
 )
 from theanompi_tpu_torch.serving import (
-    ContinuousBatchingScheduler, PagedServingEngine, Request,
+    ContinuousBatchingScheduler, PagedServingEngine, Request, Sampler,
 )
+from theanompi_tpu_torch.serving.sampling import gumbel_noise, request_seed
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -157,8 +177,20 @@ SERVE_CFG = dict(d_model=512, n_heads=8, n_layers=8, vocab_size=4096,
 SERVE_ENGINE = dict(n_slots=32, max_len=1024, block_size=32, n_blocks=257,
                     prefill_chunk=256)
 N_REQUESTS, PROMPT_LO, PROMPT_HI, NEW_TOKENS = 8, 16, 256, 32
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.int8: 1e-5}
 TIE_MARGIN = 1e-4
+# the int8 KV cache: as many int8 blocks as fit in the fp32 pool's bytes
+# (kv_block_bytes per (row, head): fp32 2·4·hd, int8 2·(hd + 4))
+I8_BLOCKS = (SERVE_ENGINE["n_blocks"] * 2 * 4 * 64) // (2 * (64 + 4))
+# card vs CPU tokens (int8 pool; sampled requests): the two sides' fp32
+# logits differ in summation order, and an int8 payload may land one
+# quantum apart where a value sits on a rounding edge; a divergence
+# passes only where the top-2 margin of what the pick was decided on
+# (logits, or scaled logits + noise) is below this
+CARD_CPU_MARGIN = 1e-3
+KV_QUANT_MIN_CAPACITY, KV_QUANT_MIN_AGREEMENT = 2.0, 0.8  # the reference's
+# sampled requests: T 0.8, top-k 50, seeded; shorter prompts
+N_SAMPLED, SAMPLED_T, SAMPLED_TOP_K, SAMPLED_NEW = 4, 0.8, 50, 16
 # training slice: AlexNet-128 at batch 128
 LRN_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256))
 POOL_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256), (128, 7, 7, 256))
@@ -355,7 +387,124 @@ def phase_kernel(dev: torch.device) -> dict:
               f"{res['library_ms']:.4f} ms (max|err| {lib_err:.3e}), bound "
               f"{res['bound_ms']:.4f} ms ({nbytes} B, Σ(len+1)={live_rows})")
         results[dt] = res
+    results[torch.int8] = _kernel_i8(dev, q, tables_np, lengths_np, flush,
+                                     rng)
     return results
+
+
+def _kernel_i8(dev, q, tables_np, lengths_np, flush, rng) -> dict:
+    """The int8 kernel against its plain version at the serving shapes,
+    over an int8 pool of I8_BLOCKS blocks (the fp32 pool's bytes):
+    seeded rows quantized by ``quantize_rows``, the fp32 instance's
+    lengths (boundary cases included), tables drawn from the larger
+    pool."""
+    s_, h, hd = q.shape
+    bs, nt = 32, tables_np.shape[1]
+    rows_n = I8_BLOCKS * bs
+    kq, ks = Q.quantize_rows(torch.from_numpy(
+        rng.randn(rows_n, h, hd).astype(np.float32)).to(dev))
+    vq, vs = Q.quantize_rows(torch.from_numpy(
+        rng.randn(rows_n, h, hd).astype(np.float32)).to(dev))
+    tables_np = np.stack([
+        rng.choice(I8_BLOCKS - 1, nt, replace=False) + 1 for _ in range(s_)
+    ]).astype(np.int32)
+    tables = torch.from_numpy(tables_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    scale = hd ** -0.5
+
+    def kern():
+        return PA.paged_decode_attention(
+            q, kq, vq, tables, lengths, block_size=bs, scale=scale,
+            k_scale=ks, v_scale=vs)
+
+    def plain():
+        return PA.paged_decode_attention_i8_plain(
+            q, kq, vq, ks, vs, tables, lengths, block_size=bs, scale=scale)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or err > ATOL[torch.int8]:
+        raise AssertionError(
+            f"paged int8 kernel vs plain: max |err| {err} > "
+            f"{ATOL[torch.int8]}")
+    _kernel_i8_edges(dev, q, kq, vq, ks, vs, tables, lengths, bs, scale)
+    # no one PyTorch call attends int8 rows with per-(row, head) scales;
+    # beside it, SDPA over the image dequantized beforehand (not the same
+    # function: it reads 4 bytes per element where the kernel reads 1)
+    rows = PA.image_rows(tables, bs)
+    k_img = (kq[rows].float() * ks[rows][..., None]).permute(0, 2, 1, 3)
+    v_img = (vq[rows].float() * vs[rows][..., None]).permute(0, 2, 1, 3)
+    k_img, v_img = k_img.contiguous(), v_img.contiguous()
+    mask = (torch.arange(nt * bs, device=dev)[None, :]
+            <= lengths.long()[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k_img, v_img, attn_mask=mask, scale=scale)
+
+    sdpa_err = float((sdpa()[:, :, 0] - want).abs().max())
+    live_rows = int((lengths_np.astype(np.int64) + 1).sum())
+    live_blocks = int((lengths_np // bs + 1).sum())
+    # each live (row, head): hd int8 values and one fp32 scale, K and V
+    nbytes = (2 * live_rows * h * (hd + 4) + 2 * s_ * h * hd * 4
+              + live_blocks * 4 + s_ * 4)
+    ops = 6 * live_rows * h * hd  # dequantize K and V, q·k, p·v
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    res = dict(
+        max_abs_err=err, ms=_time_ms(kern, flush),
+        plain_ms=_time_ms(plain, flush), library_ms=None,
+        sdpa_dequantized_image_ms=_time_ms(sdpa, flush),
+        sdpa_max_abs_err=sdpa_err, bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, n_blocks=I8_BLOCKS,
+    )
+    print(f"paged_decode_attention_i8: max|err| {err:.3e} (atol "
+          f"{ATOL[torch.int8]}), kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, sdpa on the dequantized image (not the "
+          f"same function) {res['sdpa_dequantized_image_ms']:.4f} ms "
+          f"(max|err| {sdpa_err:.3e}), bound {res['bound_ms']:.4f} ms "
+          f"({nbytes} B, {I8_BLOCKS} blocks, Σ(len+1)={live_rows})")
+    return res
+
+
+def _kernel_i8_edges(dev, q, kq, vq, ks, vs, tables, lengths, bs,
+                     scale) -> None:
+    """The int8 kernel's other paths against its plain version: a K pool
+    that starts on an odd byte (byte loads in place of ``char2``), an
+    odd head_dim (37) and the widest (128), atol 1e-5."""
+    flat = torch.empty(kq.numel() + 1, dtype=torch.int8, device=dev)
+    k_odd = flat[1:].view(kq.shape)
+    k_odd.copy_(kq)
+    cases = [("odd-aligned K pool", (q, k_odd, vq, ks, vs, tables, lengths,
+                                     bs))]
+    rng = np.random.RandomState(SEED + 3)
+    for s_, h, hd, bs_e, nb, nt in ((5, 3, 37, 4, 20, 6),
+                                    (4, 2, 128, 16, 30, 8)):
+        pools = [Q.quantize_rows(torch.from_numpy(
+            rng.randn(nb * bs_e, h, hd).astype(np.float32)).to(dev))
+            for _ in range(2)]
+        ln = rng.randint(0, nt * bs_e, size=s_).astype(np.int32)
+        ln[:2] = [0, nt * bs_e - 1]
+        cases.append((f"hd {hd}", (
+            torch.from_numpy(rng.randn(s_, h, hd).astype(np.float32)).to(dev),
+            pools[0][0], pools[1][0], pools[0][1], pools[1][1],
+            torch.from_numpy(np.stack([
+                rng.choice(nb - 1, nt, replace=False) + 1 for _ in range(s_)
+            ]).astype(np.int32)).to(dev),
+            torch.from_numpy(ln).to(dev), bs_e)))
+    for name, (q_, k_, v_, ks_, vs_, t_, l_, bs_) in cases:
+        sc = scale if name.startswith("odd") else None
+        got = PA.paged_decode_attention(q_, k_, v_, t_, l_, block_size=bs_,
+                                        scale=sc, k_scale=ks_, v_scale=vs_)
+        want = PA.paged_decode_attention_i8_plain(
+            q_, k_, v_, ks_, vs_, t_, l_, block_size=bs_, scale=sc)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > ATOL[torch.int8]:
+            raise AssertionError(
+                f"paged int8 kernel vs plain ({name}): max |err| {err}")
+        print(f"paged_decode_attention_i8 {name}: max|err| {err:.3e}")
 
 
 class _Timeline:
@@ -401,7 +550,122 @@ def _oracle_check(model, dev, req) -> None:
             toks.append(served)
 
 
-def phase_serve(dev: torch.device) -> dict:
+class _Recorder(ContinuousBatchingScheduler):
+    """The scheduler, keeping every pick's logits row (on the host) and
+    token, by (request id, token index)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.picks = {}
+
+    def _pick_tokens(self, picks, logits):
+        toks = super()._pick_tokens(picks, logits)
+        rows = logits.float().cpu()
+        for i, p in enumerate(picks):
+            if p is not None:
+                self.picks[(p[0].id, p[1])] = (rows[i], int(toks[i]))
+        return toks
+
+
+def _serve_run(engine, reqs, record: bool = False) -> dict:
+    """Serve ``reqs`` through a fresh scheduler: every paged kernel's
+    count set to 0 just before, read just after; the device bytes the
+    scheduler's pool took."""
+    timeline = _Timeline()
+    on_card = engine.device.type == "cuda"
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    sched = (_Recorder if record else ContinuousBatchingScheduler)(
+        engine, metrics=timeline)
+    pool_bytes = torch.cuda.memory_allocated() - mem0 if on_card else None
+    PA.paged_decode_attention.launches = 0
+    PA.paged_decode_attention_i8.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fp32=PA.paged_decode_attention.launches,
+                    int8=PA.paged_decode_attention_i8.launches)
+    vocab = engine.vocab_size
+    for r in reqs:
+        if len(r.output) != r.max_new_tokens or not all(
+                0 <= t < vocab for t in r.output):
+            raise AssertionError(f"{r.id}: bad output {r.output}")
+    n_tok = sum(len(r.output) for r in reqs)
+    ttft = [timeline.first_at[r.id] - timeline.admitted_at[r.id]
+            for r in reqs]
+    tick_ms = [1e3 * (timeline.done_at[r.id] - timeline.first_at[r.id])
+               / max(len(r.output) - 1, 1) for r in reqs]
+    return dict(
+        sched=sched, launches=launches, pool_bytes=pool_bytes,
+        summary=dict(
+            tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+            ttft_ms_median=1e3 * float(np.median(ttft)),
+            ttft_ms_max=1e3 * float(np.max(ttft)),
+            decode_tick_ms_median=float(np.median(tick_ms)),
+            decode_ticks=sched.stats["decode_ticks"],
+        ),
+    )
+
+
+def _want_paged_launches(run, key: str, engine) -> int:
+    """The paged kernel ``key`` launched n_layers × decode ticks times
+    and the other paged kernel never."""
+    ticks = run["sched"].stats["decode_ticks"]
+    want = {k: 0 for k in run["launches"]}
+    want[key] = engine.n_layers * ticks
+    if run["launches"] != want or want[key] == 0:
+        raise AssertionError(
+            f"paged kernel launches {run['launches']} over the run; want "
+            f"{want} (n_layers × {ticks} decode ticks)")
+    return want[key]
+
+
+def _decision_margin(req, index: int, row: torch.Tensor) -> float:
+    """The top-2 margin of what pick ``index`` of ``req`` was decided
+    on: the logits, or for a sampled request its scaled logits + noise."""
+    if req.temperature > 0:
+        noise = gumbel_noise(
+            [request_seed(req.seed, req.id, req.token_index0 + index)],
+            row.shape[-1])
+        row = Sampler.scores(row[None], noise, [req.temperature],
+                             [req.top_k])[0]
+    top2 = torch.topk(row, 2).values
+    return float(top2[0] - top2[1])
+
+
+def _same_tokens(what: str, a, b, reqs) -> int:
+    """The tokens of two recorded runs, request by request: a divergence
+    passes only where either run's decision margin at that token is
+    below CARD_CPU_MARGIN (and ends that request's comparison).
+    Returns the number of requests equal throughout."""
+    equal = 0
+    for r in reqs:
+        ta, tb = a.finished[r.id], b.finished[r.id]
+        if len(ta) != len(tb):
+            raise AssertionError(f"{what} {r.id}: {len(ta)} vs {len(tb)} "
+                                 f"tokens")
+        for i, (x, y) in enumerate(zip(ta, tb)):
+            if x != y:
+                margin = min(_decision_margin(r, i, a.picks[(r.id, i)][0]),
+                             _decision_margin(r, i, b.picks[(r.id, i)][0]))
+                print(f"{what} {r.id}: diverges at token {i} ({x} vs {y}), "
+                      f"decision margin {margin:.3e}")
+                if margin >= CARD_CPU_MARGIN:
+                    raise AssertionError(
+                        f"{what} {r.id}: tokens differ at token {i} with a "
+                        f"decision margin {margin} >= {CARD_CPU_MARGIN}")
+                break
+        else:
+            equal += 1
+    return equal
+
+
+def phase_serve(dev: torch.device):
+    """The fp32 pool's run; returns its numbers and what the int8 and
+    sampled runs reuse (the model, the engine, the prompts, the tokens)."""
     model = TransformerLM(SERVE_CFG, seed=SEED, device=dev)
     engine = PagedServingEngine(model, device=dev, **SERVE_ENGINE)
     rng = np.random.RandomState(SEED + 1)
@@ -414,50 +678,146 @@ def phase_serve(dev: torch.device) -> dict:
     engine.greedy(prompts[0][:PROMPT_LO], 2)
     torch.cuda.synchronize()
 
-    timeline = _Timeline()
-    sched = ContinuousBatchingScheduler(engine, metrics=timeline)
     reqs = [Request(id=f"r{i}", prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(prompts)]
-    PA.paged_decode_attention.launches = 0
-    t0 = time.perf_counter()
+    run = _serve_run(engine, reqs)
+    launches = _want_paged_launches(run, "fp32", engine)
     for r in reqs:
-        sched.submit(r)
-    sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = PA.paged_decode_attention.launches
-
-    ticks = sched.stats["decode_ticks"]
-    want = engine.n_layers * ticks
-    if launches != want or launches == 0:
-        raise AssertionError(
-            f"paged kernel launched {launches} times over the serving run; "
-            f"want n_layers × decode ticks = {want}")
-    for r in reqs:
-        if len(r.output) != NEW_TOKENS or not all(0 <= t < vocab
-                                                  for t in r.output):
-            raise AssertionError(f"{r.id}: bad output {r.output}")
         _oracle_check(model, dev, r)
-    n_tok = sum(len(r.output) for r in reqs)
-    ttft = [timeline.first_at[r.id] - timeline.admitted_at[r.id]
-            for r in reqs]
-    tick_ms = [1e3 * (timeline.done_at[r.id] - timeline.first_at[r.id])
-               / (len(r.output) - 1) for r in reqs]
-    out = dict(
-        tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
-        ttft_ms_median=1e3 * float(np.median(ttft)),
-        ttft_ms_max=1e3 * float(np.max(ttft)),
-        decode_tick_ms_median=float(np.median(tick_ms)),
-        decode_ticks=ticks, launches=launches,
-        stats=timeline.engine_stats,
-    )
-    print(f"serve: {N_REQUESTS} requests, {n_tok} tokens in {wall:.3f} s = "
-          f"{out['tokens_per_s']:.1f} tokens/s; TTFT median "
-          f"{out['ttft_ms_median']:.2f} ms, max {out['ttft_ms_max']:.2f} ms; "
-          f"decode tick {out['decode_tick_ms_median']:.3f} ms; {ticks} decode "
-          f"ticks, {launches} kernel launches; all requests match the "
+    out = dict(run["summary"], launches=launches,
+               stats=run["sched"].metrics.engine_stats)
+    print(f"serve: {N_REQUESTS} requests, {out['tokens']} tokens in "
+          f"{out['wall_s']:.3f} s = {out['tokens_per_s']:.1f} tokens/s; TTFT "
+          f"median {out['ttft_ms_median']:.2f} ms, max "
+          f"{out['ttft_ms_max']:.2f} ms; decode tick "
+          f"{out['decode_tick_ms_median']:.3f} ms; {out['decode_ticks']} "
+          f"decode ticks, {launches} kernel launches; all requests match the "
           f"full-recompute oracle")
-    print(f"serve stats: {json.dumps(timeline.engine_stats, sort_keys=True)}")
+    print(f"serve stats: {json.dumps(out['stats'], sort_keys=True)}")
+    cpu_model = TransformerLM(SERVE_CFG, seed=SEED, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    ctx = dict(model=model, cpu_model=cpu_model, engine=engine,
+               prompts=prompts, tokens={r.id: r.output for r in reqs})
+    return out, ctx
+
+
+def phase_serve_int8(dev: torch.device, ctx) -> dict:
+    """The same 8 requests from the int8 KV cache at the fp32 pool's
+    bytes (I8_BLOCKS blocks): int8 kernel launches = n_layers × decode
+    ticks and no fp32 launch; tokens equal to the CPU int8 engine's on
+    the same weights; the reference's kv_quant probe (capacity ratio,
+    greedy agreement with the fp32 run); the pool's device bytes."""
+    fp32 = ctx["engine"]
+    geom = dict(SERVE_ENGINE, n_blocks=I8_BLOCKS)
+    engine = PagedServingEngine(ctx["model"], device=dev, kv_dtype="int8",
+                                **geom)
+    budget = SERVE_ENGINE["n_blocks"] * fp32.kv_block_bytes()
+    if engine.blocks_at_budget(budget) != I8_BLOCKS:
+        raise AssertionError(
+            f"int8 blocks at the fp32 pool's bytes: "
+            f"{engine.blocks_at_budget(budget)}, not {I8_BLOCKS}")
+    capacity = engine.blocks_at_budget(budget) / fp32.blocks_at_budget(budget)
+    engine.greedy(ctx["prompts"][0][:PROMPT_LO], 2)  # warm-up
+    torch.cuda.synchronize()
+
+    def requests():
+        return [Request(id=f"r{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(ctx["prompts"])]
+
+    reqs = requests()
+    run = _serve_run(engine, reqs, record=True)
+    launches = _want_paged_launches(run, "int8", engine)
+    want_bytes = engine.n_blocks * engine.kv_block_bytes()
+    if not 0 <= run["pool_bytes"] - want_bytes <= 4 * 512:
+        raise AssertionError(
+            f"int8 pool took {run['pool_bytes']} B of device memory; "
+            f"n_blocks × kv_block_bytes = {want_bytes}")
+    cpu_engine = PagedServingEngine(ctx["cpu_model"], device="cpu",
+                                    kv_dtype="int8", **geom)
+    t0 = time.perf_counter()
+    cpu_run = _serve_run(cpu_engine, requests(), record=True)
+    cpu_s = time.perf_counter() - t0
+    equal = _same_tokens("int8 card vs cpu", run["sched"], cpu_run["sched"],
+                         reqs)
+    agree = sum(int(x == y) for r in reqs
+                for x, y in zip(r.output, ctx["tokens"][r.id]))
+    agreement = agree / sum(len(r.output) for r in reqs)
+    if capacity < KV_QUANT_MIN_CAPACITY or agreement < KV_QUANT_MIN_AGREEMENT:
+        raise AssertionError(
+            f"kv_quant probe: capacity {capacity:.3f} (>= "
+            f"{KV_QUANT_MIN_CAPACITY}), greedy agreement with fp32 "
+            f"{agreement:.3f} (>= {KV_QUANT_MIN_AGREEMENT})")
+    out = dict(run["summary"], launches=launches, n_blocks=I8_BLOCKS,
+               capacity_ratio=capacity, greedy_agreement_fp32=agreement,
+               requests_equal_to_cpu=equal, pool_bytes=run["pool_bytes"],
+               n_blocks_x_kv_block_bytes=want_bytes,
+               fp32_pool_bytes=fp32.n_blocks * fp32.kv_block_bytes(),
+               cpu_run_s=cpu_s)
+    print(f"serve int8: {N_REQUESTS} requests, {out['tokens']} tokens in "
+          f"{out['wall_s']:.3f} s = {out['tokens_per_s']:.1f} tokens/s; TTFT "
+          f"median {out['ttft_ms_median']:.2f} ms; decode tick "
+          f"{out['decode_tick_ms_median']:.3f} ms; {out['decode_ticks']} "
+          f"decode ticks, {launches} int8 kernel launches, 0 fp32; "
+          f"{equal}/{N_REQUESTS} requests equal to the CPU int8 engine's "
+          f"({cpu_s:.1f} s on the CPU)")
+    print(f"kv_quant: capacity ratio {capacity:.4f} ({I8_BLOCKS} int8 blocks "
+          f"in the bytes of {SERVE_ENGINE['n_blocks']} fp32), greedy agreement "
+          f"with fp32 {agreement:.4f} ({agree} tokens); pool memory_allocated "
+          f"{run['pool_bytes']} B, n_blocks × kv_block_bytes {want_bytes} B "
+          f"(fp32 pool {out['fp32_pool_bytes']} B)")
+    return out
+
+
+def phase_serve_sampled(dev: torch.device, ctx) -> dict:
+    """N_SAMPLED seeded requests at T 0.8, top-k 50 on the fp32 pool,
+    interleaved with two greedy requests, then each alone: the same
+    tokens both times, every token inside its row's top-k, and the
+    tokens equal to the CPU's."""
+    engine = ctx["engine"]
+    rng = np.random.RandomState(SEED + 2)
+    vocab = SERVE_CFG["vocab_size"]
+    prompts = [rng.randint(0, vocab, size=rng.randint(16, 65)).tolist()
+               for _ in range(N_SAMPLED)]
+
+    def sampled(ids=range(N_SAMPLED)):
+        return [Request(id=f"s{i}", prompt=prompts[i],
+                        max_new_tokens=SAMPLED_NEW, temperature=SAMPLED_T,
+                        top_k=SAMPLED_TOP_K, seed=SEED + 100 + i)
+                for i in ids]
+
+    def mixed():
+        greedy = [Request(id=f"g{i}", prompt=ctx["prompts"][i][:48],
+                          max_new_tokens=SAMPLED_NEW) for i in range(2)]
+        reqs = sampled()
+        return reqs[:2] + greedy + reqs[2:]
+
+    reqs = mixed()
+    run = _serve_run(engine, reqs, record=True)
+    launches = _want_paged_launches(run, "fp32", engine)
+    for (rid, _), (row, tok) in run["sched"].picks.items():
+        if rid.startswith("s") and row[tok] < torch.topk(
+                row, SAMPLED_TOP_K).values[-1]:
+            raise AssertionError(f"{rid}: token {tok} outside the top-"
+                                 f"{SAMPLED_TOP_K}")
+    alone_equal = 0
+    for r in sampled():
+        one = _serve_run(engine, [r], record=True)
+        alone_equal += _same_tokens("sampled alone vs interleaved",
+                                    one["sched"], run["sched"], [r])
+    cpu_engine = PagedServingEngine(ctx["cpu_model"], device="cpu",
+                                    **SERVE_ENGINE)
+    cpu_run = _serve_run(cpu_engine, mixed(), record=True)
+    cpu_equal = _same_tokens("sampled card vs cpu", run["sched"],
+                             cpu_run["sched"], reqs)
+    out = dict(run["summary"], launches=launches,
+               alone_equal=alone_equal, cpu_equal=cpu_equal,
+               requests=len(reqs), sampled=N_SAMPLED)
+    print(f"serve sampled: {N_SAMPLED} requests at T {SAMPLED_T}, top-k "
+          f"{SAMPLED_TOP_K} (seeded) + 2 greedy; {alone_equal}/{N_SAMPLED} "
+          f"equal alone and interleaved; {cpu_equal}/{len(reqs)} equal to the "
+          f"CPU's; every sampled token inside its top-{SAMPLED_TOP_K}; "
+          f"{launches} kernel launches; {out['tokens_per_s']:.1f} tokens/s")
     return out
 
 
@@ -1387,7 +1747,10 @@ def main() -> int:
     kern = phase_kernel(dev)
     train_rows = phase_train_kernels(dev)
     flash_rows = phase_flash_kernels(dev)
-    serve = phase_serve(dev)
+    serve, serve_ctx = phase_serve(dev)
+    serve_i8 = phase_serve_int8(dev, serve_ctx)
+    serve_sampled = phase_serve_sampled(dev, serve_ctx)
+    del serve_ctx
     train = phase_train(dev)
     oracle = phase_train_oracle(dev)
     lm = phase_lm_train(dev)
@@ -1408,6 +1771,15 @@ def main() -> int:
         "bound_ms": k32["bound_ms"],
         "bound_by": k32["bound_by"],
         "library_ms": k32["library_ms"],
+    }, {
+        "name": "paged_decode_attention_i8",
+        "route": "cuda",
+        "source": "theanompi_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "theanompi_tpu/ops/pallas_paged.py:129",
+        "launches": serve_i8["launches"],
+        **{k: kern[torch.int8][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }]
     for name, source, replaces in (
         ("lrn_fwd", "lrn.cu", "theanompi_tpu/ops/pallas_lrn.py:73"),
@@ -1449,8 +1821,12 @@ def main() -> int:
         })
     print(json.dumps({
         "serve": {k: v for k, v in serve.items() if k != "stats"},
+        "serve_int8": serve_i8, "serve_sampled": serve_sampled,
         "paged_decode_attention_bf16": {
             k: v for k, v in kern[torch.bfloat16].items() if k != "bytes"
+        },
+        "paged_decode_attention_i8": {
+            k: v for k, v in kern[torch.int8].items() if k != "bytes"
         },
         "train": train, "train_oracle": oracle,
         "train_kernels": [dict(r, shape=list(r["shape"])) for r in train_rows],

@@ -154,10 +154,65 @@ def test_bf16_probabilities_stay_fp32():
     assert (flash - exact).abs().max() < (plain - exact).abs().max()
 
 
+WIDE_D = 160  # above the CUDA kernels' 128: the plain versions take it
+
+
+def _wide(t, seed, n=4):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(1, t, 2, WIDE_D).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_rows_match_reference(causal, dtype_name):
+    """D = 160: forward (out, lse) and the backward rows against the
+    Pallas kernels in interpret mode, as at D = 16."""
+    q, k, v, do = _wide(40, seed=21 + int(causal))
+    jq, jk, jv, jdo = (_jax(a, dtype_name) for a in (q, k, v, do))
+    tq, tk, tv, tdo = (_torch(a, dtype_name) for a in (q, k, v, do))
+    tol = TOL[dtype_name]
+    out_ref, lse_ref = PF.flash_forward_with_lse(jq, jk, jv, causal)
+    out, lse = FL.flash_forward_with_lse(tq, tk, tv, causal)
+    _close(out, out_ref, tol, "out")
+    _close(lse, lse_ref, FP32, "lse")
+    scale = PF.resolve_scale(None, WIDE_D)
+    jrows = [PF.to_rows(a) for a in (jq, jk, jv, jdo)]
+    lse_rows = np.array(lse_ref).reshape(2, 40)
+    delta = np.sum(_np(PF.to_rows(jdo)) * _np(PF.to_rows(out_ref)), axis=-1)
+    want = PF.flash_backward_rows(*jrows, jnp.asarray(lse_rows),
+                                  jnp.asarray(delta), causal, scale)
+    got = FL.flash_backward_rows(*[FL.to_rows(a) for a in (tq, tk, tv, tdo)],
+                                 torch.from_numpy(lse_rows),
+                                 torch.from_numpy(delta), causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, tol, name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_autograd_matches_reference_vjp(causal):
+    q, k, v, ct = _wide(40, seed=31 + int(causal))
+    jargs = [_jax(a, "float32") for a in (q, k, v)]
+    out_ref, vjp = jax.vjp(
+        lambda a, b, c: PF.flash_attention(a, b, c, causal), *jargs)
+    grads_ref = vjp(_jax(ct, "float32"))
+    targs = [_torch(a, "float32").requires_grad_() for a in (q, k, v)]
+    out = FL.flash_attention(*targs, causal=causal)
+    grads = torch.autograd.grad(out, targs, _torch(ct, "float32"))
+    _close(out, out_ref, FP32, "out")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, grads_ref):
+        _close(g, w, FP32, name)
+
+
 def test_invalid_operands_raise():
     q = torch.zeros(2, 8, 2, 16)
-    with pytest.raises(ValueError, match="D <= 128"):
-        FL.flash_attention(*(torch.zeros(1, 8, 1, 129),) * 3)
+    # the CPU takes any D; the CUDA route refuses D > 128 before a launch
+    assert FL.flash_attention(*(torch.zeros(1, 8, 1, 129),) * 3).shape == (
+        1, 8, 1, 129)
+    with pytest.raises(ValueError, match="D <= 128.*ROADMAP B4"):
+        FL._check_kernel_head_dim("flash_fwd", torch.zeros(1, 8, 129))
+    FL._check_kernel_head_dim("flash_fwd", torch.zeros(1, 8, 128))
+    with pytest.raises(ValueError, match="D >= 1"):
+        FL.flash_fwd(*(torch.zeros(1, 8, 0),) * 3, True, 1.0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         FL.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="must match q"):

@@ -28,6 +28,8 @@ EXPECTED_MODULES = {
     "ops.flash",
     # slice 4: the block-quantized gradient wire
     "parallel.quantize",
+    # slice 5: the int8 KV cache and sampled requests
+    "serving.sampling",
 }
 
 

@@ -291,13 +291,14 @@ def test_entry_points_default_to_the_card(monkeypatch, model):
 
 
 def test_unported_paths_raise(model):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PagedServingEngine(model, device="cpu", kv_dtype="int8", **GEOM)
+    # the int8 KV cache and sampled requests are ported now: they pass
+    # through (tests/test_torch_paged_int8.py, test_torch_sampling.py)
+    i8 = PagedServingEngine(model, device="cpu", kv_dtype="int8", **GEOM)
+    assert i8.init_state()["k"].dtype == torch.int8
+    assert Request(id="s", prompt=[1], temperature=0.7).temperature == 0.7
     teng = PagedServingEngine(model, device="cpu", **GEOM)
     with pytest.raises(NotImplementedError, match="later slice"):
         teng.verify_chunks()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Request(id="s", prompt=[1], temperature=0.7)
     with pytest.raises(NotImplementedError, match="later slice"):
         ContinuousBatchingScheduler(teng, spec_k=2)
     for key in ("moe_experts", "sp", "tp", "pp"):

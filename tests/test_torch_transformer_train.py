@@ -63,10 +63,10 @@ def _batch():
     return next(iter(data.train_batches()))
 
 
-def _reference_step(attn_impl, compute_dtype):
+def _reference_step(attn_impl, compute_dtype, **over):
     mesh = make_mesh(devices=jax.devices()[:1])
     jm = JaxLM(config=dict(CFG, attn_impl=attn_impl,
-                           compute_dtype=compute_dtype), mesh=mesh)
+                           compute_dtype=compute_dtype, **over), mesh=mesh)
     before = jax.tree.map(np.array, jm.params)
     x, y = _batch()
     xs, ys = shard_batch(mesh, (x, y))
@@ -99,9 +99,10 @@ def ref_xla():
     return _reference_step("xla", None)
 
 
-def _port_step(ref, attn_impl, compute_dtype):
+def _port_step(ref, attn_impl, compute_dtype, **over):
     m = TransformerLM(config=dict(CFG, attn_impl=attn_impl,
-                                  compute_dtype=compute_dtype), device="cpu")
+                                  compute_dtype=compute_dtype, **over),
+                      device="cpu")
     m.load_state_dict(params_from_jax(ref["before"]))
     x, y = (torch.from_numpy(a) for a in _batch())
     val = [float(a) for a in m.compile_val()(x, y)]
@@ -158,6 +159,14 @@ def test_flash_train_step_matches_reference_fp32(ref_flash):
 
 def test_xla_train_step_matches_reference_fp32(ref_xla):
     _assert_step_equal(_port_step(ref_xla, "xla", None), ref_xla)
+
+
+def test_flash_train_step_head_dim_144_matches_reference_fp32():
+    """A head wider than the CUDA kernels' 128 trains on the CPU with
+    ``attn_impl='flash'``, as in the reference (d_model 288, 2 heads)."""
+    wide = dict(d_model=288, n_heads=2)
+    ref = _reference_step("flash", None, **wide)
+    _assert_step_equal(_port_step(ref, "flash", None, **wide), ref)
 
 
 def test_flash_train_step_matches_reference_bf16(ref_flash_bf16):

@@ -26,8 +26,11 @@ The device of ``q`` decides what runs: a CUDA tensor launches the
 hand-written kernel (``csrc/flash_attention.cu``) or raises; a CPU
 tensor takes the plain version.  Nothing falls back from the card to
 the plain version.  Each wrapper counts its kernel launches in
-``.launches``.  Both routes take fp32 or bf16 q/k/v of one shape, any
-``T ≥ 1`` and ``D ≤ 128``, and raise ``ValueError`` for anything else.
+``.launches``.  Both routes take fp32 or bf16 q/k/v of one shape and
+any ``T ≥ 1``, and raise ``ValueError`` for anything else; the plain
+versions take any head dim ``D``, as the reference's kernels do, the
+CUDA kernels ``D ≤ 128`` (a wider head on the card raises, naming
+ROADMAP B4).
 
 Numerics, as the Pallas kernels: q/k/v are widened to fp32, every
 product and the softmax statistics are fp32, and the probabilities
@@ -83,10 +86,9 @@ def _check(what: str, ref: torch.Tensor, *others: torch.Tensor) -> None:
     if ref.dtype not in _SUFFIX:
         raise ValueError(f"{what}: q/k/v must be float32 or bfloat16, not "
                          f"{ref.dtype}")
-    if ref.dim() != 3 or ref.shape[1] < 1 or not (
-            1 <= ref.shape[2] <= MAX_HEAD_DIM):
+    if ref.dim() != 3 or ref.shape[1] < 1 or ref.shape[2] < 1:
         raise ValueError(
-            f"{what}: want rows (B·H, T >= 1, D <= {MAX_HEAD_DIM}), got "
+            f"{what}: want rows (B·H, T >= 1, D >= 1), got "
             f"{tuple(ref.shape)}")
     for t in others:
         if (t.shape != ref.shape or t.dtype != ref.dtype
@@ -194,8 +196,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_kernel_head_dim(what: str, x: torch.Tensor) -> None:
+    """The CUDA kernels hold a row of q, the output and its accumulator
+    in registers, ``D <= 128``; the plain versions have no limit."""
+    if x.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}: the CUDA kernels take D <= {MAX_HEAD_DIM}, got D = "
+            f"{x.shape[-1]} (a wider head on the card is ROADMAP B4; the "
+            f"CPU takes any D)")
+
+
 def _launch(name: str, x: torch.Tensor, ptrs, causal: bool,
             scale: float) -> None:
+    _check_kernel_head_dim(f"flash_{name}", x)
     bh, t, d = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _library()

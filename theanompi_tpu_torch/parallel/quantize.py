@@ -21,6 +21,11 @@ and one fp32 scale per row.
 - ``quantize_fp16`` — ``q = fp16(x / safe)`` with ``s = amax / 256``
   (``FP16_CAP``): every block lands in fp16's normal range.
 - ``dequantize`` — ``float(q) · s`` for an int8 or fp16 payload.
+- ``quantize_rows`` / ``dequantize_rows`` — the same int8
+  round-to-nearest codec over the last axis of any width, in plain
+  torch on any device (no kernel: the reference applies
+  ``quantize_blocks`` over head_dim in XLA).  The int8 KV cache writes
+  its rows through it (``serving.paging``).
 
 The device of the input decides what runs: a CUDA tensor launches the
 hand-written kernel (``csrc/block_quant.cu``) or raises; a CPU tensor
@@ -129,6 +134,22 @@ def quantize_fp16_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """int8 or fp16 (…, 256) payload and (…,) scales → fp32 (…, 256)."""
     _check_payload(q, s)
+    return q.to(torch.float32) * s[..., None]
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, n) float → ((…, n) int8, (…,) fp32): one scale ``amax / 127``
+    per row of the last axis, round half to even, clip to ±127.  Runs
+    where ``x`` lies (plain torch; the division is by a tensor, so the
+    scale is the IEEE quotient on the card too)."""
+    x = x.to(torch.float32)
+    s, safe = _scale(x, INT8_CAP)
+    q = torch.round(x / safe[..., None]).clamp_(-INT8_CAP, INT8_CAP)
+    return q.to(torch.int8), s
+
+
+def dequantize_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(…, n) int8 and (…,) fp32 scales → fp32 (…, n)."""
     return q.to(torch.float32) * s[..., None]
 
 

@@ -4,9 +4,11 @@
   decode over a contiguous per-slot KV cache.
 - ``paging``    — ``BlockPool``, ``PrefixCache`` and
   ``PagedServingEngine``: the paged KV cache, whose decode attention is
-  the hand-written CUDA kernel on the card.
+  the hand-written CUDA kernels on the card (fp32/bf16 or int8 pool).
+- ``sampling``  — ``Sampler``: temperature and top-k picks with a
+  counter-based Gumbel draw per (seed, id, token index).
 - ``scheduler`` — ``ContinuousBatchingScheduler`` and ``Request``:
-  continuous batching with greedy picks.
+  continuous batching with greedy and sampled picks.
 """
 
 from theanompi_tpu_torch.serving.engine import ServingEngine
@@ -15,6 +17,7 @@ from theanompi_tpu_torch.serving.paging import (
     PagedServingEngine,
     PrefixCache,
 )
+from theanompi_tpu_torch.serving.sampling import Sampler
 from theanompi_tpu_torch.serving.scheduler import (
     ContinuousBatchingScheduler,
     Request,
@@ -26,5 +29,6 @@ __all__ = [
     "PagedServingEngine",
     "PrefixCache",
     "Request",
+    "Sampler",
     "ServingEngine",
 ]

@@ -20,8 +20,15 @@ counterpart of ``theanompi_tpu.serving.paging``.
   decode tick's attention is ``ops.paged_attention``: the CUDA kernel
   on the card, its plain version on the CPU — the device decides.
 
-The pool holds the compute dtype (fp32 or bf16).  The int8 KV cache and
-the speculative-decoding verify pass are later slices of the port.
+The pool holds the compute dtype (fp32 or bf16), or with
+``kv_dtype='int8'`` int8 rows beside fp32 scale planes ``ks``/``vs``
+(one scale per pool row and head, ``parallel.quantize.quantize_rows``
+over head_dim): K/V are quantized once, on write, so every reader (the
+prefill image, the decode kernel, a prefix-sharing sibling) sees the
+same bytes, and about 3.8× the blocks fit in the same bytes at head_dim
+64.  Prefill attends the dequantized image in the compute dtype; the
+decode tick's kernel dequantizes in registers.  The speculative-decoding
+verify pass is a later slice of the port.
 
 Correctness contract: greedy decode through block tables picks the same
 tokens as the contiguous engine and the no-cache full recompute; a
@@ -43,9 +50,11 @@ from theanompi_tpu_torch.ops.paged_attention import (
     image_rows,
     paged_decode_attention,
 )
+from theanompi_tpu_torch.parallel.quantize import quantize_rows
 from theanompi_tpu_torch.serving.engine import ServingEngine
 
 TRASH_BLOCK = 0  # reserved physical block: masked/inactive writes land here
+KV_DTYPES = ("fp32", "int8")
 
 _LATER_SLICE = "is a later slice of the PyTorch port"
 
@@ -198,7 +207,8 @@ class PagedServingEngine(ServingEngine):
     - ``prefill_rows`` — lanes per batched prefill call (= ``n_slots``).
     - ``prefill_chunk`` — most prompt tokens one prefill call advances a
       lane by (None = whole prompt).  Chunks pad to ``chunk_buckets``.
-    - ``kv_dtype`` — ``'fp32'``: the pool holds the compute dtype.
+    - ``kv_dtype`` — ``'fp32'``: the pool holds the compute dtype;
+      ``'int8'``: int8 rows with per-(row, head) fp32 scales.
     """
 
     is_paged = True
@@ -218,13 +228,10 @@ class PagedServingEngine(ServingEngine):
     ):
         super().__init__(model, n_slots=n_slots, max_len=max_len,
                          buckets=buckets, device=device)
-        if kv_dtype == "int8":
-            raise NotImplementedError(
-                f"kv_dtype='int8' (the int8 KV cache and its kernel) "
-                f"{_LATER_SLICE}"
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}"
             )
-        if kv_dtype != "fp32":
-            raise ValueError(f"kv_dtype must be 'fp32', got {kv_dtype!r}")
         self.kv_dtype = kv_dtype
         if int(block_size) < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -256,24 +263,44 @@ class PagedServingEngine(ServingEngine):
     # ------------------------------------------------------------------
     # state + pool construction
     # ------------------------------------------------------------------
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype == "int8"
+
     def init_state(self) -> Dict[str, torch.Tensor]:
         """Device block pool: ``k``/``v`` of (layers, n_blocks·bs, heads,
-        head_dim).  Lengths and block tables stay host-side and ship
-        with each call."""
+        head_dim); ``kv_dtype='int8'`` adds the scale planes ``ks``/``vs``
+        of (layers, n_blocks·bs, heads).  Lengths and block tables stay
+        host-side and ship with each call."""
         shape = (self.n_layers, self.n_blocks * self.block_size,
                  self.n_heads, self.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=self.cache_dtype,
-                             device=self.device),
-            "v": torch.zeros(shape, dtype=self.cache_dtype,
-                             device=self.device),
+        dt = torch.int8 if self.quantized else self.cache_dtype
+        state = {
+            "k": torch.zeros(shape, dtype=dt, device=self.device),
+            "v": torch.zeros(shape, dtype=dt, device=self.device),
         }
+        if self.quantized:
+            for key in ("ks", "vs"):
+                state[key] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=self.device)
+        return state
 
     def kv_block_bytes(self) -> int:
-        """Device bytes one pool block occupies across all layers (K+V)."""
-        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
-        return (2 * self.n_layers * self.block_size * self.n_heads
-                * self.head_dim * itemsize)
+        """Device bytes one pool block occupies across all layers (K+V
+        payload, plus the int8 pool's scale planes)."""
+        payload = 1 if self.quantized else torch.empty(
+            (), dtype=self.cache_dtype).element_size()
+        rows = self.block_size * self.n_heads
+        b = 2 * self.n_layers * rows * self.head_dim * payload
+        if self.quantized:
+            b += 2 * self.n_layers * rows * 4  # fp32 scale per (row, head)
+        return b
+
+    def blocks_at_budget(self, budget_bytes: int) -> int:
+        """How many pool blocks fit in ``budget_bytes`` of cache memory
+        at this engine's kv_dtype (the trash block counts like any
+        other)."""
+        return max(0, int(budget_bytes) // self.kv_block_bytes())
 
     def make_pool(self, n_blocks: Optional[int] = None) -> BlockPool:
         """A fresh allocator over (a prefix of) the device pool."""
@@ -296,6 +323,33 @@ class PagedServingEngine(ServingEngine):
 
     def max_seq_blocks(self, total_tokens: int) -> int:
         return math.ceil(total_tokens / self.block_size)
+
+    # ------------------------------------------------------------------
+    # pool rows
+    # ------------------------------------------------------------------
+    def _kv_write(self, state, key: str, layer: int, rows: torch.Tensor,
+                  wr: torch.Tensor) -> None:
+        """Write K or V ``rows`` (N, H, hd) into one layer's pool at row
+        indices ``wr``, in place.  int8: quantized once, here, over
+        head_dim (``quantize_rows``), the scales into ``ks``/``vs``."""
+        if self.quantized:
+            q8, sc = quantize_rows(rows)
+            state[key][layer][wr] = q8
+            state[key + "s"][layer][wr] = sc
+        else:
+            state[key][layer][wr] = rows.to(state[key].dtype)
+
+    def _kv_image(self, state, key: str, layer: int,
+                  gr: torch.Tensor) -> torch.Tensor:
+        """One layer's K or V image through the gathered rows ``gr``
+        (P, t_pad) → (P, t_pad, H, hd); int8 rows are dequantized with
+        their scales and cast to the compute dtype (the reference's
+        ``_kv_image``)."""
+        img = state[key][layer][gr]
+        if self.quantized:
+            img = img.float() * state[key + "s"][layer][gr][..., None]
+            img = img.to(self.cache_dtype)
+        return img
 
     # ------------------------------------------------------------------
     # host entries (state is written in place)
@@ -349,11 +403,13 @@ class PagedServingEngine(ServingEngine):
         for i, blk_l in enumerate(self.model.blocks):
             y = blk_l.ln1(x)
             q, k, v = blk_l.attn.qkv(y)  # (P, C, H, hd)
-            pk, pv = state["k"][i], state["v"][i]
-            pk[wr] = k.reshape(-1, self.n_heads, self.head_dim).to(pk.dtype)
-            pv[wr] = v.reshape(-1, self.n_heads, self.head_dim).to(pv.dtype)
-            o = local_attention(q, pk[gr], pv[gr], mask=mask,
-                                scale=self.scale)
+            rows_k = k.reshape(-1, self.n_heads, self.head_dim)
+            rows_v = v.reshape(-1, self.n_heads, self.head_dim)
+            self._kv_write(state, "k", i, rows_k, wr)
+            self._kv_write(state, "v", i, rows_v, wr)
+            o = local_attention(q, self._kv_image(state, "k", i, gr),
+                                self._kv_image(state, "v", i, gr),
+                                mask=mask, scale=self.scale)
             x = x + blk_l.attn.out(o)
             x = x + blk_l.mlp(blk_l.ln2(x))
         last = x[torch.arange(p_, device=dev), (true_len_d - 1).clamp(min=0)]
@@ -386,12 +442,13 @@ class PagedServingEngine(ServingEngine):
         for i, blk_l in enumerate(self.model.blocks):
             y = blk_l.ln1(x)
             q, k, v = blk_l.attn.qkv(y)  # (S, H, hd)
-            pk, pv = state["k"][i], state["v"][i]
-            pk[wr] = k.to(pk.dtype)
-            pv[wr] = v.to(pv.dtype)
+            self._kv_write(state, "k", i, k, wr)
+            self._kv_write(state, "v", i, v, wr)
+            scales = (dict(k_scale=state["ks"][i], v_scale=state["vs"][i])
+                      if self.quantized else {})
             o = paged_decode_attention(
-                q, pk, pv, tables_d, lengths_d, block_size=bs,
-                scale=self.scale,
+                q, state["k"][i], state["v"][i], tables_d, lengths_d,
+                block_size=bs, scale=self.scale, **scales,
             ).to(y.dtype)
             x = x + blk_l.attn.out(o)
             x = x + blk_l.mlp(blk_l.ln2(x))

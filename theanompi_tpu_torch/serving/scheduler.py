@@ -17,11 +17,14 @@ finishes, returning the slot.  The decode step keeps one shape.
 Determinism: every per-slot computation is independent across slots,
 so a request's output under any interleaving equals its output alone.
 
-Picks are greedy (exact argmax over the fp32 logits, one batched
-device argmax and one host transfer per tick).  Sampling, speculative
-decoding, draining, serving metrics and request tracing are later
-slices of the port.  ``metrics``, when given, receives the reference's
-hook calls: ``admitted(rid, prompt_len, t)``, ``first_token(rid, t)``,
+Picks: a greedy request (``temperature=0``) takes the exact argmax of
+its fp32 logits; a sampled one draws through ``sampling.Sampler`` with
+the noise of its own (seed, id, token index), so its stream does not
+depend on the batch.  One batched pick on the device and one host
+transfer per call, greedy or not.  Speculative decoding, draining,
+serving metrics and request tracing are later slices of the port.
+``metrics``, when given, receives the reference's hook calls:
+``admitted(rid, prompt_len, t)``, ``first_token(rid, t)``,
 ``finished(rid, n_tokens, t)`` (``t`` from ``time.perf_counter``) and,
 after ``run``, ``set_engine_stats(stats)``.
 """
@@ -35,19 +38,35 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from theanompi_tpu_torch.serving.sampling import (
+    Sampler,
+    gumbel_noise,
+    request_seed,
+)
+
 _LATER_SLICE = "is a later slice of the PyTorch port"
 
 
 @dataclass
 class Request:
-    """One generation request.  ``temperature=0`` = greedy, the only
-    pick this slice serves."""
+    """One generation request.
+
+    ``temperature=0`` = greedy (exact argmax, the default);
+    ``temperature>0`` samples, optionally through a ``top_k`` filter,
+    deterministically per ``seed`` (an unseeded request derives its seed
+    from its id).  ``token_index0`` is the token index of the first new
+    pick (a request that replays earlier output as its prompt keeps the
+    stream it would have drawn).
+    """
 
     id: str
     prompt: List[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     temperature: float = 0.0
+    top_k: int = 0
+    seed: Optional[int] = None
+    token_index0: int = 0
     # filled by the scheduler
     output: List[int] = field(default_factory=list)
 
@@ -63,10 +82,10 @@ class Request:
                 f"request {self.id!r}: temperature must be >= 0 "
                 f"(0 = greedy), got {self.temperature}"
             )
-        if self.temperature > 0:
-            raise NotImplementedError(
-                f"request {self.id!r}: sampling (temperature > 0) "
-                f"{_LATER_SLICE}; this slice picks greedily"
+        if self.top_k < 0:
+            raise ValueError(
+                f"request {self.id!r}: top_k must be >= 0 "
+                f"(0 = disabled), got {self.top_k}"
             )
 
 
@@ -103,6 +122,7 @@ class ContinuousBatchingScheduler:
         self.slots = [_Slot() for _ in range(engine.n_slots)]
         self.queue: List[Request] = []
         self.finished: Dict[str, List[int]] = {}
+        self.sampler = Sampler()
         self._tokens = np.zeros((engine.n_slots,), np.int64)
         self._active = np.zeros((engine.n_slots,), bool)
         # per-run reuse/capacity stats (host-side, exact)
@@ -188,11 +208,38 @@ class ContinuousBatchingScheduler:
         slot.produced = 0
         self._active[i] = False
 
-    @staticmethod
-    def _pick_batch(logits: torch.Tensor) -> np.ndarray:
-        """Greedy picks for every row of ``logits`` (N, V): one device
-        argmax, one host transfer (the first maximum wins ties)."""
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+    def _pick_batch(self, reqs: List[Optional[Request]],
+                    logits: torch.Tensor) -> np.ndarray:
+        """The next token for every row of ``logits`` (N, V);
+        ``reqs[i] is None`` marks a row whose pick is discarded."""
+        return self._pick_tokens(
+            [(r, len(r.output)) if r is not None else None for r in reqs],
+            logits,
+        )
+
+    def _pick_tokens(self, picks, logits: torch.Tensor) -> np.ndarray:
+        """Row i of ``logits`` (N, V) picks for ``picks[i] = (request,
+        token_index)`` (None = discarded row).  With no sampled row this
+        is one device argmax (the first maximum wins ties); otherwise
+        sampled rows draw with the noise of (seed, id, token_index0 +
+        token_index) and greedy rows stay the argmax.  One host
+        transfer either way."""
+        sampled = [p is not None and p[0].temperature > 0.0 for p in picks]
+        if not any(sampled):
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        n = len(picks)
+        temps = np.zeros((n,), np.float32)
+        top_ks = np.zeros((n,), np.int64)
+        words = np.zeros((n,), np.int64)
+        for i, p in enumerate(picks):
+            if not sampled[i]:
+                continue
+            r, idx = p
+            temps[i] = r.temperature
+            top_ks[i] = r.top_k
+            words[i] = request_seed(r.seed, r.id, r.token_index0 + idx)
+        noise = gumbel_noise(words, logits.shape[-1], device=logits.device)
+        return self.sampler.pick_batch(logits, noise, temps, top_ks)
 
     def _emit(self, i: int, token: int) -> bool:
         """Append one generated token to slot i's request; True when the
@@ -224,7 +271,7 @@ class ContinuousBatchingScheduler:
             self._active[i] = True
             self._note_concurrency()
             produced += 1
-            if self._emit(i, int(self._pick_batch(logits[None])[0])):
+            if self._emit(i, int(self._pick_batch([req], logits[None])[0])):
                 self._finish(i)
         # 2) one fixed-shape decode tick over the active slots
         if self._active.any():
@@ -238,7 +285,9 @@ class ContinuousBatchingScheduler:
                 self.cache, self._tokens, self._active
             )
             self.stats["decode_ticks"] += 1
-            toks = self._pick_batch(logits)
+            toks = self._pick_batch(
+                [s.request if was_active[i] else None
+                 for i, s in enumerate(self.slots)], logits)
             for i in range(len(self.slots)):
                 if not was_active[i]:
                     continue
@@ -320,7 +369,10 @@ class ContinuousBatchingScheduler:
                 completing.append(r_idx)
             self.stats["prefill_tokens"] += len(rows[r_idx]["tokens"])
         if completing:
-            picks = self._pick_batch(logits)
+            reqs = [None] * logits.shape[0]
+            for r_idx in completing:
+                reqs[r_idx] = self.slots[pending[r_idx]].request
+            picks = self._pick_batch(reqs, logits)
             for r_idx in completing:
                 i = pending[r_idx]
                 s = self.slots[i]
@@ -345,7 +397,9 @@ class ContinuousBatchingScheduler:
         # the tick wrote each active lane's token at row `length`;
         # advance after the call so the next tick writes the next row
         self._lengths[decoding] += 1
-        toks = self._pick_batch(logits)
+        toks = self._pick_batch(
+            [s.request if decoding[i] else None
+             for i, s in enumerate(self.slots)], logits)
         produced = 0
         for i in range(len(self.slots)):
             if not decoding[i]:
