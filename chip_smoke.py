@@ -33,7 +33,11 @@ Phases, each of which raises on failure (nothing is caught):
    yardstick (``F.local_response_norm`` with α·size for the forward;
    aten's ``max_pool2d_with_indices_backward`` for the pool, which
    routes ties to one max and so is a yardstick of time only; none for
-   the LRN backward), beside the bound.
+   the LRN backward), beside the bound.  Then the max-pool backward's
+   edge cases (one launch a call, the 16-byte or the one-channel path):
+   C 3, 13 and 96, windows 2/2, 3/2 and 3/1 on (2, 9, 11, C), fp32 and
+   bf16, inputs drawn from four levels so that most windows tie, C 96
+   with x off 16 bytes, and (1, 9, 2100, 64) in bands of columns.
 5. serve — ``TransformerLM`` at the flagship serving config (d_model
    512, 8 heads, 8 layers, vocab 4096, seq_len 1024; seeded random
    weights) behind ``PagedServingEngine`` (32 slots, block 32, 257
@@ -74,11 +78,17 @@ Phases, each of which raises on failure (nothing is caught):
    dK/dV kernels against their plain versions at the LM path's rows
    (B·H = 64, T = 1024, D = 64, causal) and at three tail shapes
    (T = 200, D = 32, full; T = 100, D = 64, causal; T = 130, D = 96,
-   causal: the 128-wide instance), fp32 and bf16; times of the kernel (cold L2), the plain version and
-   ``F.scaled_dot_product_attention`` (forward; forward + backward
-   minus forward: the one-call yardstick, used nowhere in the port),
-   beside the bound (bf16 products at the tensor cores' 989 TFLOP/s,
-   fp32 at 67 TFLOP/s, or the bytes at 3.35 TB/s).
+   causal: the 128-wide instance), fp32 and bf16; times of the kernel
+   (cold L2), the plain version and the one-call yardsticks, used
+   nowhere in the port: ``F.scaled_dot_product_attention`` for the
+   forward, and for dQ with dK/dV (bf16) aten's
+   ``_scaled_dot_product_flash_attention_backward`` timed alone on what
+   aten's flash forward returns; beside the bound (bf16 products at the
+   tensor cores' 989 TFLOP/s, fp32 at 67 TFLOP/s, or the bytes at 3.35
+   TB/s).  bf16 with D <= 64 runs the wgmma forward fed by TMA.  Then
+   the bf16 forward's edge cases: T 1, 127, 128 and 129, D 16, 32, 40,
+   64 (the wgmma instance) and 36 (mma.sync), causal and full, and q
+   off 16 bytes (mma.sync).
 9. LM train — ``BSP().init(devices=1, ...)`` / ``rule.wait()`` for
    ``TransformerLM`` at the serving config's full width (d_model 512, 8
    heads, 8 layers, vocab 4096, seq_len 1024) with batch 8, bf16
@@ -225,6 +235,19 @@ FLASH_SHAPES = ((64, 1024, 64, True), (8, 200, 32, False),
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
              torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
 LSE_TOL = dict(rtol=1e-5, atol=2e-5)
+# on-card edge checks of the flash forward (bf16: the wgmma instance fed
+# by TMA, and the mma.sync one where D is not a multiple of 8 or q lies
+# off 16 bytes) and of the max-pool backward (channels that do and do not
+# fill 16-byte vectors, three windows, odd H and W, inputs drawn from four
+# levels so that most windows tie; an operand off 16 bytes; a row too
+# wide for one band), at FLASH_TOL / LSE_TOL and KERNEL_TOL
+FLASH_EDGE_T = (1, 127, 128, 129)
+FLASH_EDGE_D = (16, 32, 40, 64, 36)
+POOL_EDGE_C = (3, 13, 96)
+POOL_EDGE_WINDOWS = ((2, 2), (3, 2), (3, 1))
+POOL_EDGE_HW = (9, 11)
+POOL_EDGE_LEVELS = (0.0, 0.5, 1.0, 1.5)
+POOL_EDGE_WIDE = (1, 9, 2100, 64)  # 3/2: one row of a band is too wide
 LM_CFG = dict(SERVE_CFG, batch_size=8, compute_dtype="bfloat16",
               attn_impl="flash", exch_strategy="ar", n_synth_train=32,
               n_synth_val=2, n_epochs=1, print_freq=4)
@@ -999,7 +1022,7 @@ STEP_PARTS = (
                                            "dequant_fp16_kernel")),
     ("memcpy (host<->card; gloo stages the wire)", ("memcpy",)),
     ("lrn (kernel)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
-    ("pool bwd (kernel)", ("pool_share_kernel", "pool_gather_kernel")),
+    ("pool bwd (kernel)", ("maxpool_bwd_kernel",)),
     ("exchange (nccl)", ("nccl",)),
     ("conv/dense (cuDNN/cuBLAS)", ("conv", "cudnn", "xmma", "gemm",
                                    "cutlass", "cublas", "wgrad", "dgrad",
@@ -1133,6 +1156,23 @@ def _flash_cost(bh, t, d, causal, esize) -> dict:
                 flash_dkv=(6 * n + 2 * stats, 8 * d * pairs))
 
 
+def _aten_flash_backward(q4, k4, v4, do4, causal: bool, scale: float):
+    """aten's flash-attention backward alone (dQ, dK, dV of (B, H, T, D)
+    bf16 views), fed what aten's flash forward returns; its schema,
+    positional up to the keyword ``scale``: (grad_out, query, key,
+    value, out, logsumexp, cum_seq_q, cum_seq_k, max_q, max_k,
+    dropout_p, is_causal, philox_seed, philox_offset)."""
+    out, lse, cq, ck, mq, mk, seed, offset, _ = (
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, causal, False, scale=scale))
+
+    def bwd():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
+            offset, scale=scale)
+    return bwd
+
+
 def phase_flash_kernels(dev: torch.device) -> list:
     """The three flash kernels against their plain versions, fp32 and
     bf16, at FLASH_SHAPES; one row per (kernel, shape, dtype)."""
@@ -1150,6 +1190,8 @@ def phase_flash_kernels(dev: torch.device) -> list:
             bwd = (q, k, v, do, lse_p, delta, causal, scale)
             tol = FLASH_TOL[dt]
             out_k, lse_k = FL.flash_fwd(q, k, v, causal, scale)
+            fwd_instance = FL.flash_fwd_instance(
+                dt, d, [a.data_ptr() for a in (q, k, v, out_k)])
             err_f = max(_check_close("flash_fwd out", out_k, out_p, dt, tol),
                         _check_close("flash_fwd lse", lse_k, lse_p, dt,
                                      LSE_TOL))
@@ -1159,22 +1201,20 @@ def phase_flash_kernels(dev: torch.device) -> list:
             dk_p, dv_p = FL.flash_dkv_plain(*bwd)
             err_kv = max(_check_close("flash_dkv dk", dk_k, dk_p, dt, tol),
                          _check_close("flash_dkv dv", dv_k, dv_p, dt, tol))
-            # one-call yardstick: SDPA over (1, B·H, T, D) views
+            # one-call yardsticks over (1, B·H, T, D) views: SDPA's
+            # forward, and (bf16) aten's flash backward alone, fed the
+            # outputs of aten's flash forward
             q4, k4, v4, do4 = (a.view(1, bh, t, d) for a in (q, k, v, do))
-            leaves = [a.detach().requires_grad_() for a in (q4, k4, v4)]
 
             def sdpa(q4=q4, k4=k4, v4=v4):
                 return F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal, scale=scale)
 
-            def sdpa_fwd_bwd(leaves=leaves, do4=do4):
-                o = F.scaled_dot_product_attention(
-                    *leaves, is_causal=causal, scale=scale)
-                return torch.autograd.grad(o, leaves, do4)
-
             lib_err = float((sdpa()[0].float() - out_p.float()).abs().max())
             lib_fwd = _time_ms(sdpa, flush)
-            lib_bwd = _time_ms(sdpa_fwd_bwd, flush) - lib_fwd
+            lib_bwd = (_time_ms(_aten_flash_backward(q4, k4, v4, do4, causal,
+                                                     scale), flush)
+                       if dt == torch.bfloat16 else None)
             cost = _flash_cost(bh, t, d, causal, q.element_size())
             peak = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
             for name, kern, plain, err, lib in (
@@ -1182,7 +1222,7 @@ def phase_flash_kernels(dev: torch.device) -> list:
                  lambda: FL.flash_fwd_plain(q, k, v, causal, scale), err_f,
                  lib_fwd),
                 ("flash_dq", lambda: FL.flash_dq(*bwd),
-                 lambda: FL.flash_dq_plain(*bwd), err_q, None),
+                 lambda: FL.flash_dq_plain(*bwd), err_q, lib_bwd),
                 ("flash_dkv", lambda: FL.flash_dkv(*bwd),
                  lambda: FL.flash_dkv_plain(*bwd), err_kv, None),
             ):
@@ -1194,19 +1234,123 @@ def phase_flash_kernels(dev: torch.device) -> list:
                            plain_ms=_time_ms(plain, flush),
                            library_ms=lib, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=nbytes, ops=ops,
-                           sdpa_bwd_ms=lib_bwd, sdpa_max_abs_err=lib_err)
+                           sdpa_max_abs_err=lib_err)
                 rows.append(row)
                 lib_s = f"{lib:.4f} ms" if lib is not None else "none"
+                inst = (f", instance {fwd_instance}" if name == "flash_fwd"
+                        else "")
                 print(f"{name} {row['dtype']} (bh {bh}, T {t}, D {d}, "
-                      f"causal {causal}): max|err| {err:.3e} (tol {tol}), "
-                      f"kernel {row['ms']:.4f} ms, plain "
-                      f"{row['plain_ms']:.4f} ms, sdpa {lib_s}, bound "
+                      f"causal {causal}{inst}): max|err| {err:.3e} (tol "
+                      f"{tol}), kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, library {lib_s}, bound "
                       f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
                       f"{ops / 1e9:.3f} GFLOP)")
+            bwd_s = (f"{lib_bwd:.4f} ms (dQ, dK, dV in one call: the "
+                     f"flash_dq row's library_ms)" if lib_bwd is not None
+                     else "not timed (aten's flash backward takes fp16/bf16)")
             print(f"  sdpa {row['dtype']} (bh {bh}, T {t}, D {d}): forward "
-                  f"{lib_fwd:.4f} ms, backward (fwd+bwd - fwd) "
-                  f"{lib_bwd:.4f} ms, max|err| vs plain {lib_err:.3e}")
+                  f"{lib_fwd:.4f} ms, aten flash backward alone {bwd_s}, "
+                  f"max|err| vs plain {lib_err:.3e}")
     return rows
+
+
+def phase_flash_edges(dev: torch.device) -> dict:
+    """The bf16 forward against its plain version at T in FLASH_EDGE_T,
+    D in FLASH_EDGE_D, causal and full (3 rows of (batch, head)), and
+    with q at a storage offset of one element; asserts the instance each
+    case runs."""
+    rng = np.random.RandomState(SEED + 6)
+    dt, bh, worst, n = torch.bfloat16, 3, 0.0, 0
+    seen = set()
+    for t in FLASH_EDGE_T:
+        for d in FLASH_EDGE_D:
+            q, k, v = (torch.from_numpy(rng.randn(bh, t, d).astype(
+                np.float32)).to(dev).to(dt) for _ in range(3))
+            shifted = torch.empty(q.numel() + 1, dtype=dt, device=dev)[1:]
+            shifted = shifted.view(q.shape).copy_(q)
+            scale = FL.resolve_scale(None, d)
+            for causal in (False, True):
+                for label, qq in (("aligned", q), ("q off 16 B", shifted)):
+                    out_p, lse_p = FL.flash_fwd_plain(qq, k, v, causal, scale)
+                    out_k, lse_k = FL.flash_fwd(qq, k, v, causal, scale)
+                    inst = FL.flash_fwd_instance(
+                        dt, d, [a.data_ptr() for a in (qq, k, v, out_k)])
+                    want = ("wgmma" if d % 8 == 0 and label == "aligned"
+                            else "mma")
+                    if inst != want:
+                        raise AssertionError(
+                            f"flash_fwd T {t} D {d} {label}: instance {inst},"
+                            f" want {want}")
+                    what = f"flash_fwd edge T {t} D {d} causal {causal} {label}"
+                    worst = max(worst,
+                                _check_close(f"{what} out", out_k, out_p, dt,
+                                             FLASH_TOL[dt]),
+                                _check_close(f"{what} lse", lse_k, lse_p, dt,
+                                             LSE_TOL))
+                    seen.add(inst)
+                    n += 1
+    print(f"flash_fwd edges: {n} cases (T {FLASH_EDGE_T}, D {FLASH_EDGE_D}, "
+          f"causal and full, aligned and q off 16 B; instances "
+          f"{sorted(seen)}) within {FLASH_TOL[dt]} / lse {LSE_TOL}, max|err| "
+          f"{worst:.3e}")
+    return dict(cases=n, max_abs_err=worst, instances=sorted(seen))
+
+
+def _pool_edge_case(dev, rng, shape, window, stride, dt, shift=False):
+    levels = np.asarray(POOL_EDGE_LEVELS, np.float32)
+    x = torch.from_numpy(levels[rng.randint(0, len(levels), size=shape)])
+    x = x.to(dev).to(dt)
+    if shift:  # x at a storage offset of one element: off 16 bytes
+        x = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:].view(
+            x.shape).copy_(x)
+    y = PO.maxpool_fwd(x, window, stride)
+    dy = torch.from_numpy(rng.randn(*y.shape).astype(np.float32)).to(dev)
+    dy = dy.to(dt)
+    dx = torch.empty_like(x)
+    plan = PO.plan_maxpool_bwd(tuple(x.shape), window, stride,
+                               x.element_size(),
+                               all(a.data_ptr() % 16 == 0
+                                   for a in (x, y, dy, dx)))
+    what = f"maxpool_bwd edge {tuple(shape)} {window}/{stride} shift {shift}"
+    err = _check_close(what, PO.maxpool_bwd(x, y, dy, window, stride),
+                       PO.maxpool_bwd_plain(x, y, dy, window, stride), dt)
+    return err, plan
+
+
+def phase_pool_edges(dev: torch.device) -> dict:
+    """The max-pool backward against its plain version, fp32 and bf16,
+    at POOL_EDGE_C × POOL_EDGE_WINDOWS on (2, 9, 11, C), x from four
+    levels; C = 96 with x off 16 bytes; POOL_EDGE_WIDE (column bands).
+    Asserts the vector or scalar path the plan picks."""
+    rng = np.random.RandomState(SEED + 7)
+    worst, n, paths = 0.0, 0, set()
+    for c in POOL_EDGE_C:
+        for window, stride in POOL_EDGE_WINDOWS:
+            for dt in (torch.float32, torch.bfloat16):
+                for shift in ((False, True) if c == 96 else (False,)):
+                    err, plan = _pool_edge_case(
+                        dev, rng, (2, *POOL_EDGE_HW, c), window, stride, dt,
+                        shift)
+                    itemsize = torch.finfo(dt).bits // 8
+                    want = c * itemsize % 16 == 0 and not shift
+                    if plan.vec != want:
+                        raise AssertionError(
+                            f"maxpool_bwd C {c} shift {shift}: vec "
+                            f"{plan.vec}, want {want}")
+                    worst, n = max(worst, err), n + 1
+                    paths.add("vector" if plan.vec else "scalar")
+    err, plan = _pool_edge_case(dev, rng, POOL_EDGE_WIDE, 3, 2,
+                                torch.bfloat16)
+    if plan.n_bands[1] < 2:
+        raise AssertionError(f"{POOL_EDGE_WIDE}: want column bands, got "
+                             f"{plan}")
+    worst, n = max(worst, err), n + 1
+    print(f"maxpool_bwd edges: {n} cases (C {POOL_EDGE_C}, windows "
+          f"{POOL_EDGE_WINDOWS}, H x W {POOL_EDGE_HW}, levels "
+          f"{POOL_EDGE_LEVELS}, x off 16 B at C 96, {POOL_EDGE_WIDE} in "
+          f"{plan.n_bands} bands; paths {sorted(paths)}) within KERNEL_TOL, "
+          f"max|err| {worst:.3e}")
+    return dict(cases=n, max_abs_err=worst, paths=sorted(paths))
 
 
 def _flash_per_step(rows, name, n_layers) -> dict:
@@ -1746,7 +1890,9 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(dev)
     train_rows = phase_train_kernels(dev)
+    pool_edges = phase_pool_edges(dev)
     flash_rows = phase_flash_kernels(dev)
+    flash_edges = phase_flash_edges(dev)
     serve, serve_ctx = phase_serve(dev)
     serve_i8 = phase_serve_int8(dev, serve_ctx)
     serve_sampled = phase_serve_sampled(dev, serve_ctx)
@@ -1833,6 +1979,7 @@ def main() -> int:
         "lm_train": lm, "lm_oracle": lm_oracle,
         "flash_kernels": [dict(r, shape=list(r["shape"]))
                           for r in flash_rows],
+        "pool_edges": pool_edges, "flash_edges": flash_edges,
         "wire_kernels": wire_rows, "lm_bsp2": bsp2,
     }))
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,9 @@ fp32; the softmax runs blockwise online in the reference and over the
 whole row here, and the sums run in other orders).  bf16 outputs within
 one bf16 step (rtol 2⁻⁷, atol 1e-5): the fp32 values before the final
 rounding differ by ~1e-6, and the rounding may fall on either side;
-lse stays fp32 (atol 2e-5).
+fp16 (which the reference's kernels widen to fp32 like any float, and
+the port's plain versions take on the CPU) the same form with fp16's
+step (rtol 2⁻¹⁰, atol 1e-5); lse stays fp32 (atol 2e-5).
 """
 
 import jax
@@ -31,7 +33,9 @@ from theanompi_tpu_torch.ops.attention import local_attention
 
 B, H, D = 2, 2, 16
 FP32 = dict(rtol=0.0, atol=2e-5)
-TOL = {"float32": FP32, "bfloat16": dict(rtol=2.0 ** -7, atol=1e-5)}
+TOL = {"float32": FP32, "bfloat16": dict(rtol=2.0 ** -7, atol=1e-5),
+       "float16": dict(rtol=2.0 ** -10, atol=1e-5)}
+DTYPES = ["float32", "bfloat16", "float16"]
 CASES = [(8, None), (64, None), (64, 32), (96, None), (96, 32)]
 
 
@@ -68,7 +72,7 @@ def _close(got, want, tol, what):
     np.testing.assert_allclose(_np(got), _np(want), err_msg=what, **tol)
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype_name", DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t,block", CASES)
 def test_forward_and_backward_rows_match_reference(t, block, causal,
@@ -103,7 +107,7 @@ def test_forward_and_backward_rows_match_reference(t, block, causal,
         _close(g, w, tol, name)
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype_name", DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
 def test_autograd_matches_reference_vjp(causal, dtype_name, monkeypatch):
     """``flash_attention``'s autograd backward (Δ computed from the
@@ -213,8 +217,15 @@ def test_invalid_operands_raise():
     FL._check_kernel_head_dim("flash_fwd", torch.zeros(1, 8, 128))
     with pytest.raises(ValueError, match="D >= 1"):
         FL.flash_fwd(*(torch.zeros(1, 8, 0),) * 3, True, 1.0)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        FL.flash_attention(q.half(), q.half(), q.half())
+    # the CPU computes fp16, as the reference's kernels widen any float;
+    # the CUDA route refuses it before a launch, naming ROADMAP B4
+    out = FL.flash_attention(q.half(), q.half(), q.half())
+    assert out.dtype == torch.float16 and out.shape == q.shape
+    with pytest.raises(ValueError, match="float16.*ROADMAP B4"):
+        FL._check_kernel_dtype("flash_fwd", FL.to_rows(q.half()))
+    FL._check_kernel_dtype("flash_fwd", FL.to_rows(q.bfloat16()))
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        FL.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="must match q"):
         FL.flash_attention(q, torch.zeros(2, 9, 2, 16), q)
     with pytest.raises(ValueError, match="lse and delta"):

@@ -26,11 +26,12 @@ The device of ``q`` decides what runs: a CUDA tensor launches the
 hand-written kernel (``csrc/flash_attention.cu``) or raises; a CPU
 tensor takes the plain version.  Nothing falls back from the card to
 the plain version.  Each wrapper counts its kernel launches in
-``.launches``.  Both routes take fp32 or bf16 q/k/v of one shape and
-any ``T ≥ 1``, and raise ``ValueError`` for anything else; the plain
-versions take any head dim ``D``, as the reference's kernels do, the
-CUDA kernels ``D ≤ 128`` (a wider head on the card raises, naming
-ROADMAP B4).
+``.launches``.  Both routes take q/k/v of one shape and any ``T ≥ 1``,
+and raise ``ValueError`` for anything else.  The plain versions take
+fp32, bf16 or fp16 and any head dim ``D``, as the reference's kernels
+widen any float and take any D; the CUDA kernels take fp32 or bf16 with
+``D ≤ 128`` (fp16 or a wider head on the card raises before a launch,
+naming ROADMAP B4).
 
 Numerics, as the Pallas kernels: q/k/v are widened to fp32, every
 product and the softmax statistics are fp32, and the probabilities
@@ -41,7 +42,10 @@ zeroed again after the exp, so a fully masked row gives no NaN.  On
 the card, bf16 with D <= 64 runs on the tensor cores: the bf16 products
 are exact in fp32, and P and dS enter their products as two bf16 terms
 each (16 significant bits), so the outputs stay within one bf16 step
-of the plain version; fp32, and bf16 with D > 64, run fp32 FMAs.
+of the plain version; fp32, and bf16 with D > 64, run fp32 FMAs.  The
+bf16 forward with D a multiple of 8 and every operand on 16 bytes runs
+the ``wgmma`` instance fed by TMA, the other bf16 forwards with
+D <= 64 the ``mma.sync`` one (``flash_fwd_instance``).
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ from theanompi_tpu_torch import cuda_build
 KERNEL = "flash_attention"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # CUDA kernels
 
 
 # ---------------------------------------------------------------------------
@@ -83,9 +88,9 @@ def resolve_scale(scale: Optional[float], d: int) -> float:
 
 
 def _check(what: str, ref: torch.Tensor, *others: torch.Tensor) -> None:
-    if ref.dtype not in _SUFFIX:
-        raise ValueError(f"{what}: q/k/v must be float32 or bfloat16, not "
-                         f"{ref.dtype}")
+    if ref.dtype not in _FLOATS:
+        raise ValueError(f"{what}: q/k/v must be float32, bfloat16 or "
+                         f"float16, not {ref.dtype}")
     if ref.dim() != 3 or ref.shape[1] < 1 or ref.shape[2] < 1:
         raise ValueError(
             f"{what}: want rows (B·H, T >= 1, D >= 1), got "
@@ -186,11 +191,12 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32, i32, i32, i32, f32, ptr]  # bh, t, d, causal, scale, stream
-    for sfx in _SUFFIX.values():
-        for name, n_ptr in (("fwd", 5), ("dq", 7), ("dkv", 8)):
-            fn = getattr(lib, f"flash_{name}_{sfx}")
-            fn.argtypes = [ptr] * n_ptr + dims
-            fn.restype = ctypes.c_int
+    for name, n_ptr in (("fwd_f32", 5), ("fwd_bf16", 5), ("fwd_bf16_tma", 5),
+                        ("dq_f32", 7), ("dq_bf16", 7), ("dkv_f32", 8),
+                        ("dkv_bf16", 8)):
+        fn = getattr(lib, f"flash_{name}")
+        fn.argtypes = [ptr] * n_ptr + dims
+        fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -206,15 +212,69 @@ def _check_kernel_head_dim(what: str, x: torch.Tensor) -> None:
             f"CPU takes any D)")
 
 
+def _check_kernel_dtype(what: str, x: torch.Tensor) -> None:
+    """The CUDA kernels take fp32 or bf16; the plain versions also fp16."""
+    if x.dtype not in _SUFFIX:
+        raise ValueError(
+            f"{what}: the CUDA kernels take float32 or bfloat16, not "
+            f"{x.dtype} (fp16 on the card is ROADMAP B4; the CPU takes it)")
+
+
+def flash_fwd_instance(dtype: torch.dtype, d: int, ptrs) -> str:
+    """The forward kernel instance for rows of ``dtype`` and head dim
+    ``d`` at the addresses ``ptrs`` (q, k, v, out): ``'wgmma'`` (fed by
+    TMA) for bf16 with ``d <= 64``, ``d`` a multiple of 8 (16-byte row
+    strides) and every base on 16 bytes; ``'mma'`` (``mma.sync``) for
+    the other bf16 rows with ``d <= 64``; ``'simt'`` for fp32, and for
+    bf16 with ``64 < d <= 128``."""
+    if dtype != torch.bfloat16 or d > 64:
+        return "simt"
+    if d % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "mma"
+
+
+FWD_TILE = 128  # query rows per item and keys per K/V tile, wgmma forward
+
+
+def flash_fwd_schedule(bh: int, t: int, causal: bool,
+                       n_ctas: int) -> list:
+    """The wgmma forward's persistent schedule (``tma_item`` in
+    ``csrc/flash_attention.cu``; the kernel runs ``min(items, SMs)``
+    CTAs): for each CTA, its items in order as ``(query tile, head row,
+    K/V tiles)``.  Item ``w`` of the ``bh · ⌈t/128⌉`` is query tile
+    ``n_q − 1 − w // bh`` of head row ``w % bh`` (the longest causal rows
+    first); the CTAs take them in rounds, forwards in even rounds and
+    backwards in odd ones."""
+    n_q = -(-t // FWD_TILE)
+    n_items = bh * n_q
+    rounds = -(-n_items // n_ctas)
+    plan = []
+    for c in range(n_ctas):
+        mine = []
+        for k in range(rounds):
+            w = k * n_ctas + (c if k % 2 == 0 else n_ctas - 1 - c)
+            if w < n_items:
+                qt = n_q - 1 - w // bh
+                mine.append((qt, w % bh, min(n_q, qt + 1) if causal else n_q))
+        plan.append(mine)
+    return plan
+
+
 def _launch(name: str, x: torch.Tensor, ptrs, causal: bool,
             scale: float) -> None:
+    _check_kernel_dtype(f"flash_{name}", x)
     _check_kernel_head_dim(f"flash_{name}", x)
     bh, t, d = x.shape
+    addrs = [p.data_ptr() for p in ptrs]
+    fn = f"flash_{name}_{_SUFFIX[x.dtype]}"
+    if name == "fwd" and flash_fwd_instance(x.dtype, d,
+                                            addrs[:4]) == "wgmma":
+        fn += "_tma"
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _library()
-    rc = getattr(lib, f"flash_{name}_{_SUFFIX[x.dtype]}")(
-        *[p.data_ptr() for p in ptrs], bh, t, d, int(bool(causal)),
-        float(scale), stream)
+    rc = getattr(lib, fn)(*addrs, bh, t, d, int(bool(causal)), float(scale),
+                          stream)
     if rc != 0:
         raise RuntimeError(f"flash_{name} launch failed: "
                            f"{lib.flash_error_string(rc).decode()}")
