@@ -85,10 +85,12 @@ Phases, each of which raises on failure (nothing is caught):
    ``_scaled_dot_product_flash_attention_backward`` timed alone on what
    aten's flash forward returns; beside the bound (bf16 products at the
    tensor cores' 989 TFLOP/s, fp32 at 67 TFLOP/s, or the bytes at 3.35
-   TB/s).  bf16 with D <= 64 runs the wgmma forward fed by TMA.  Then
-   the bf16 forward's edge cases: T 1, 127, 128 and 129, D 16, 32, 40,
-   64 (the wgmma instance) and 36 (mma.sync), causal and full, and q
-   off 16 bytes (mma.sync).
+   TB/s).  bf16 with D <= 64 and D % 8 = 0 runs the wgmma forward, dQ
+   and dK/dV fed by TMA (asserted per row).  Then the bf16 edge cases
+   of all three: T 1, 127, 128 and 129, D 16, 32, 40, 64 (the wgmma
+   instances) and 36 (mma.sync), causal and full, and q off 16 bytes
+   (mma.sync); and dQ, dK/dV with several items a CTA at (B·H, T, D) =
+   (200, 64, 64) and (300, 256, 64), causal and full.
 9. LM train — ``BSP().init(devices=1, ...)`` / ``rule.wait()`` for
    ``TransformerLM`` at the serving config's full width (d_model 512, 8
    heads, 8 layers, vocab 4096, seq_len 1024) with batch 8, bf16
@@ -243,6 +245,9 @@ LSE_TOL = dict(rtol=1e-5, atol=2e-5)
 # wide for one band), at FLASH_TOL / LSE_TOL and KERNEL_TOL
 FLASH_EDGE_T = (1, 127, 128, 129)
 FLASH_EDGE_D = (16, 32, 40, 64, 36)
+# the wgmma backward with several items a CTA: the shapes at which a
+# truncating hi/lo split of P and dS left one element outside FLASH_TOL
+FLASH_BWD_MANY = ((200, 64, 64), (300, 256, 64))
 POOL_EDGE_C = (3, 13, 96)
 POOL_EDGE_WINDOWS = ((2, 2), (3, 2), (3, 1))
 POOL_EDGE_HW = (9, 11)
@@ -310,7 +315,7 @@ def phase_build() -> None:
         print(f"built {name}: {path.name} ({dt:.1f} s)")
         log = path.with_name(path.name + ".log")
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7514" in line:
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -1190,15 +1195,27 @@ def phase_flash_kernels(dev: torch.device) -> list:
             bwd = (q, k, v, do, lse_p, delta, causal, scale)
             tol = FLASH_TOL[dt]
             out_k, lse_k = FL.flash_fwd(q, k, v, causal, scale)
-            fwd_instance = FL.flash_fwd_instance(
-                dt, d, [a.data_ptr() for a in (q, k, v, out_k)])
+            instance = dict(flash_fwd=FL.flash_fwd_instance(
+                dt, d, [a.data_ptr() for a in (q, k, v, out_k)]))
             err_f = max(_check_close("flash_fwd out", out_k, out_p, dt, tol),
                         _check_close("flash_fwd lse", lse_k, lse_p, dt,
                                      LSE_TOL))
-            err_q = _check_close("flash_dq", FL.flash_dq(*bwd),
-                                 FL.flash_dq_plain(*bwd), dt, tol)
+            dq_k = FL.flash_dq(*bwd)
+            err_q = _check_close("flash_dq", dq_k, FL.flash_dq_plain(*bwd),
+                                 dt, tol)
             dk_k, dv_k = FL.flash_dkv(*bwd)
             dk_p, dv_p = FL.flash_dkv_plain(*bwd)
+            instance["flash_dq"] = FL.flash_bwd_instance(
+                dt, d, [a.data_ptr() for a in (q, k, v, do, dq_k)])
+            instance["flash_dkv"] = FL.flash_bwd_instance(
+                dt, d, [a.data_ptr() for a in (q, k, v, do, dk_k, dv_k)])
+            # fresh allocations lie on 16 bytes: the instance goes by
+            # dtype and D (the LM's rows take wgmma for all three)
+            want = ("simt" if dt != torch.bfloat16 or d > 64
+                    else "wgmma" if d % 8 == 0 else "mma")
+            if set(instance.values()) != {want}:
+                raise AssertionError(f"flash (bh {bh}, T {t}, D {d}, {dt}): "
+                                     f"instances {instance}, want {want}")
             err_kv = max(_check_close("flash_dkv dk", dk_k, dk_p, dt, tol),
                          _check_close("flash_dkv dv", dv_k, dv_p, dt, tol))
             # one-call yardsticks over (1, B·H, T, D) views: SDPA's
@@ -1229,7 +1246,8 @@ def phase_flash_kernels(dev: torch.device) -> list:
                 nbytes, ops = cost[name]
                 bound_ms, bound_by = _bound(nbytes, ops, peak)
                 row = dict(name=name, shape=(bh, t, d), causal=causal,
-                           dtype=str(dt)[6:], max_abs_err=err,
+                           dtype=str(dt)[6:], instance=instance[name],
+                           max_abs_err=err,
                            ms=_time_ms(kern, flush),
                            plain_ms=_time_ms(plain, flush),
                            library_ms=lib, bound_ms=bound_ms,
@@ -1237,10 +1255,9 @@ def phase_flash_kernels(dev: torch.device) -> list:
                            sdpa_max_abs_err=lib_err)
                 rows.append(row)
                 lib_s = f"{lib:.4f} ms" if lib is not None else "none"
-                inst = (f", instance {fwd_instance}" if name == "flash_fwd"
-                        else "")
                 print(f"{name} {row['dtype']} (bh {bh}, T {t}, D {d}, "
-                      f"causal {causal}{inst}): max|err| {err:.3e} (tol "
+                      f"causal {causal}, instance {instance[name]}): max|err| "
+                      f"{err:.3e} (tol "
                       f"{tol}), kernel {row['ms']:.4f} ms, plain "
                       f"{row['plain_ms']:.4f} ms, library {lib_s}, bound "
                       f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
@@ -1254,18 +1271,39 @@ def phase_flash_kernels(dev: torch.device) -> list:
     return rows
 
 
+def _flash_bwd_edge(what, args, want, dt) -> float:
+    """dQ and dK/dV on ``args`` against their plain versions; asserts
+    that both run the ``want`` instance.  Returns the largest error."""
+    dq = FL.flash_dq(*args)
+    dk, dv = FL.flash_dkv(*args)
+    q, k, v, do = args[:4]
+    for name, outs in (("flash_dq", (dq,)), ("flash_dkv", (dk, dv))):
+        inst = FL.flash_bwd_instance(
+            dt, q.shape[-1], [a.data_ptr() for a in (q, k, v, do, *outs)])
+        if inst != want:
+            raise AssertionError(f"{name} {what}: instance {inst}, want "
+                                 f"{want}")
+    dk_p, dv_p = FL.flash_dkv_plain(*args)
+    return max(
+        _check_close(f"flash_dq {what}", dq, FL.flash_dq_plain(*args), dt,
+                     FLASH_TOL[dt]),
+        _check_close(f"flash_dkv dk {what}", dk, dk_p, dt, FLASH_TOL[dt]),
+        _check_close(f"flash_dkv dv {what}", dv, dv_p, dt, FLASH_TOL[dt]))
+
+
 def phase_flash_edges(dev: torch.device) -> dict:
-    """The bf16 forward against its plain version at T in FLASH_EDGE_T,
-    D in FLASH_EDGE_D, causal and full (3 rows of (batch, head)), and
-    with q at a storage offset of one element; asserts the instance each
-    case runs."""
+    """The bf16 forward, dQ and dK/dV against their plain versions at T
+    in FLASH_EDGE_T, D in FLASH_EDGE_D, causal and full (3 rows of
+    (batch, head)), and with q at a storage offset of one element;
+    asserts the instance each case runs.  Then dQ and dK/dV at
+    FLASH_BWD_MANY, causal and full (several items a CTA)."""
     rng = np.random.RandomState(SEED + 6)
-    dt, bh, worst, n = torch.bfloat16, 3, 0.0, 0
+    dt, bh, worst, worst_bwd, n = torch.bfloat16, 3, 0.0, 0.0, 0
     seen = set()
     for t in FLASH_EDGE_T:
         for d in FLASH_EDGE_D:
-            q, k, v = (torch.from_numpy(rng.randn(bh, t, d).astype(
-                np.float32)).to(dev).to(dt) for _ in range(3))
+            q, k, v, do = (torch.from_numpy(rng.randn(bh, t, d).astype(
+                np.float32)).to(dev).to(dt) for _ in range(4))
             shifted = torch.empty(q.numel() + 1, dtype=dt, device=dev)[1:]
             shifted = shifted.view(q.shape).copy_(q)
             scale = FL.resolve_scale(None, d)
@@ -1281,19 +1319,40 @@ def phase_flash_edges(dev: torch.device) -> dict:
                         raise AssertionError(
                             f"flash_fwd T {t} D {d} {label}: instance {inst},"
                             f" want {want}")
-                    what = f"flash_fwd edge T {t} D {d} causal {causal} {label}"
+                    what = f"edge T {t} D {d} causal {causal} {label}"
                     worst = max(worst,
-                                _check_close(f"{what} out", out_k, out_p, dt,
-                                             FLASH_TOL[dt]),
-                                _check_close(f"{what} lse", lse_k, lse_p, dt,
-                                             LSE_TOL))
+                                _check_close(f"flash_fwd {what} out", out_k,
+                                             out_p, dt, FLASH_TOL[dt]),
+                                _check_close(f"flash_fwd {what} lse", lse_k,
+                                             lse_p, dt, LSE_TOL))
+                    delta = (do.float() * out_p.float()).sum(dim=-1)
+                    worst_bwd = max(worst_bwd, _flash_bwd_edge(
+                        what, (qq, k, v, do, lse_p, delta, causal, scale),
+                        want, dt))
                     seen.add(inst)
                     n += 1
-    print(f"flash_fwd edges: {n} cases (T {FLASH_EDGE_T}, D {FLASH_EDGE_D}, "
-          f"causal and full, aligned and q off 16 B; instances "
-          f"{sorted(seen)}) within {FLASH_TOL[dt]} / lse {LSE_TOL}, max|err| "
-          f"{worst:.3e}")
-    return dict(cases=n, max_abs_err=worst, instances=sorted(seen))
+    print(f"flash edges: {n} cases each of flash_fwd, flash_dq and "
+          f"flash_dkv (T {FLASH_EDGE_T}, D {FLASH_EDGE_D}, causal and full, "
+          f"aligned and q off 16 B; instances {sorted(seen)}) within "
+          f"{FLASH_TOL[dt]} / lse {LSE_TOL}, max|err| fwd {worst:.3e}, "
+          f"bwd {worst_bwd:.3e}")
+    n_many = 0
+    for bh_, t, d in FLASH_BWD_MANY:
+        q, k, v, do = (torch.from_numpy(rng.randn(bh_, t, d).astype(
+            np.float32)).to(dev).to(dt) for _ in range(4))
+        scale = FL.resolve_scale(None, d)
+        for causal in (False, True):
+            out_p, lse_p = FL.flash_fwd_plain(q, k, v, causal, scale)
+            delta = (do.float() * out_p.float()).sum(dim=-1)
+            worst_bwd = max(worst_bwd, _flash_bwd_edge(
+                f"B.H {bh_} T {t} D {d} causal {causal}",
+                (q, k, v, do, lse_p, delta, causal, scale), "wgmma", dt))
+            n_many += 1
+    print(f"flash_dq / flash_dkv at {FLASH_BWD_MANY} (B.H, T, D), causal "
+          f"and full: {n_many} cases, instance wgmma, within "
+          f"{FLASH_TOL[dt]}; max|err| bwd over all edges {worst_bwd:.3e}")
+    return dict(cases=n, bwd_many_cases=n_many, max_abs_err=worst,
+                bwd_max_abs_err=worst_bwd, instances=sorted(seen))
 
 
 def _pool_edge_case(dev, rng, shape, window, stride, dt, shift=False):

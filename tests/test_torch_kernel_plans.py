@@ -14,6 +14,12 @@
   (query tile, head row) items: each exactly once, the longest causal
   rows first, and the CTAs' loads within one tile of each other at the
   LM's shape.
+- ``ops.flash.flash_bwd_instance`` / ``flash_bwd_schedule``: the same
+  for the dQ and dK/dV kernels (items of 128 queries, or 128 keys, that
+  stream 64-row tiles of the other side): the instance by dtype, D and
+  the alignment of each row operand; each item exactly once, longest
+  first; the CTAs within one item's work of each other at the LM's
+  shape.
 
 Small sizes; torch capped at two threads, as the other port tests."""
 
@@ -167,3 +173,72 @@ def test_flash_schedule_balances_the_lm_shape():
     loads = [sum(nk for _, _, nk in mine) for mine in plan]
     assert sum(loads) == 64 * 36
     assert max(loads) <= 18 and min(loads) >= 16
+
+
+@pytest.mark.parametrize("kernel,n_ptrs", [("dq", 5), ("dkv", 6)])
+def test_flash_backward_instance_by_shape_dtype_and_alignment(kernel,
+                                                              n_ptrs):
+    """Row operands: q, k, v, dout and the outputs (dq; or dk, dv)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    aligned = [64 * i for i in range(n_ptrs)]
+    assert FL.flash_bwd_instance(bf, 64, aligned) == "wgmma"
+    assert FL.flash_bwd_instance(bf, 8, aligned) == "wgmma"
+    assert FL.flash_bwd_instance(bf, 40, aligned) == "wgmma"
+    assert FL.flash_bwd_instance(bf, 36, aligned) == "mma"
+    for off in range(n_ptrs):  # any one operand off 16 bytes
+        ptrs = list(aligned)
+        ptrs[off] += 2
+        assert FL.flash_bwd_instance(bf, 64, ptrs) == "mma", off
+    assert FL.flash_bwd_instance(bf, 96, aligned) == "simt"
+    assert FL.flash_bwd_instance(bf, 128, aligned) == "simt"
+    assert FL.flash_bwd_instance(f32, 64, aligned) == "simt"
+    assert FL.flash_bwd_instance(f32, 32, aligned) == "simt"
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("bh,t,causal,n_ctas", [
+    (64, 1024, True, 132), (64, 1024, False, 132), (3, 129, True, 6),
+    (8, 200, False, 16), (1, 1, True, 1), (5, 1000, True, 7),
+])
+def test_flash_bwd_schedule_covers_each_item_once_longest_first(
+        kernel, bh, t, causal, n_ctas):
+    n_own, n_str = -(-t // FL.FWD_TILE), -(-t // FL.BWD_TILE)
+    n_ctas = min(n_ctas, bh * n_own)
+    plan = FL.flash_bwd_schedule(kernel, bh, t, causal, n_ctas)
+    items = [(tile, row) for mine in plan for tile, row, _ in mine]
+    assert sorted(items) == sorted(itertools.product(range(n_own),
+                                                     range(bh)))
+    assert all(mine for mine in plan)  # every CTA has work
+    for mine in plan:
+        for tile, _, n in mine:
+            # the streamed 64-row tiles that meet the item's 128 rows
+            # under the mask: dQ keys [0, 128 (tile + 1)), dK/dV queries
+            # [128 tile, t)
+            if not causal:
+                assert n == n_str
+            elif kernel == "dq":
+                assert n == min(n_str, 2 * tile + 2)
+            else:
+                assert n == n_str - 2 * tile >= 1
+    firsts = min(mine[0][2] for mine in plan)
+    later = [n for mine in plan for _, _, n in mine[1:]]
+    assert all(firsts >= n for n in later)
+
+
+def test_flash_bwd_schedule_rejects_an_unknown_kernel():
+    with pytest.raises(ValueError, match="'dq' or 'dkv'"):
+        FL.flash_bwd_schedule("fwd", 2, 64, True, 2)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_flash_bwd_schedule_balances_the_lm_shape(kernel):
+    """At the LM's rows (64 head rows, T 1024, causal) over an H100's
+    132 SMs: 4608 streamed tiles, 34.9 a CTA; the CTAs lie within one
+    item's work (16 tiles) of each other, none above 36."""
+    plan = FL.flash_bwd_schedule(kernel, 64, 1024, True, 132)
+    loads = [sum(n for _, _, n in mine) for mine in plan]
+    assert sum(loads) == 64 * 72
+    heaviest = max(n for mine in plan for _, _, n in mine)
+    assert heaviest == 16
+    assert max(loads) - min(loads) <= heaviest
+    assert max(loads) <= 36

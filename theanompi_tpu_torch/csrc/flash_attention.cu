@@ -30,16 +30,17 @@
 // tile pass and staged in shared memory; the T x T scores never leave
 // registers and shared memory.  Three instances:
 //
-// - the bf16 forward with D <= 64 and D a multiple of 8 (the LM path):
-//   wgmma on the tensor cores fed by a TMA ring, 128 query rows per CTA;
-//   see its section below.  Bound at the LM's shape (BH 64, T 1024,
-//   D 64, causal): 33.5 MB at 3.35 TB/s, 0.0101 ms, against 8.6 GFLOP
-//   of products at 989 TFLOP/s, 0.0087 ms.
-// - the other bf16 kernels with D <= 64 (dQ, dK/dV, and the forward
-//   where TMA cannot describe the rows: D not a multiple of 8, or a base
-//   off 16 bytes): the products run on the tensor cores (mma.sync
-//   m16n8k16, fp32 accumulation), 4 warps per CTA, each warp owning 16
-//   rows; see the section below.
+// - bf16 with D <= 64, D a multiple of 8 and every row operand on 16
+//   bytes (the LM path): wgmma on the tensor cores fed by a TMA ring, in
+//   a persistent grid, 128 rows per work item; the forward and the
+//   backward pair each have a section below.  Bound at the LM's shape
+//   (BH 64, T 1024, D 64, causal): the forward's 33.5 MB at 3.35 TB/s,
+//   0.0101 ms, against 8.6 GFLOP of products at 989 TFLOP/s, 0.0087 ms;
+//   dQ 12.9 GFLOP, 0.0130 ms; dK/dV 17.2 GFLOP, 0.0174 ms.
+// - the other bf16 calls with D <= 64 (where TMA cannot describe the
+//   rows: D not a multiple of 8, or a base off 16 bytes): the products
+//   run on the tensor cores (mma.sync m16n8k16, fp32 accumulation), 4
+//   warps per CTA, each warp owning 16 rows; see the section below.
 // - fp32 (any D <= 128), and bf16 with 64 < D <= 128: fp32 FMAs on the
 //   CUDA cores (SIMT).  256 threads (16 x 16, thread (ty, tx) owns rows
 //   4ty..4ty+3 and columns 4tx..4tx+3 of a tile) keep a 4 x 4 tile of
@@ -55,8 +56,7 @@
 //   dQ:      one CTA per (bh, q tile), looping K tiles up to the diagonal.
 //   dK/dV:   one CTA per (bh, k tile), looping Q tiles from the diagonal.
 // Neither backward kernel needs atomics: each writes only its own tile.
-// Later work: the backward on wgmma with TMA, and the tensor cores for D
-// up to 128.
+// Later work: the tensor cores for D up to 128.
 
 #include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_bf16.h>
@@ -992,10 +992,11 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64) += A (64 x 16, bf16 pairs in registers, the m16n8k16 A
-// fragment of each warp's 16 rows) B (16 x 64, shared, MN-major).
+// d (64 x 64) (+)= A (64 x 16, bf16 pairs in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) B (16 x 64, shared, MN-major);
+// `accumulate` 0 overwrites d.
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -1010,7 +1011,30 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 64) (+)= A (64 x 16) B (16 x 64), bf16 operands read from
+// shared memory through descriptors, both K-major, fp32 accumulators;
+// `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // The online softmax of one K/V tile in a consumer warpgroup, in
@@ -1351,6 +1375,606 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   if (storer) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward for D <= 64 with D a multiple of 8 (the LM path):
+// dQ and dK/dV as two kernels on the forward's pattern, wgmma fed by a
+// TMA ring in a persistent grid of 384-thread CTAs (two consumer
+// warpgroups, a producer warpgroup at 40 registers a thread against
+// 232).  A work item is 128 rows of one (batch, head) row that the CTA
+// owns (queries for dQ, keys for dK/dV), 64 of them per consumer
+// warpgroup; its two tiles are loaded once by TMA into one of two slots
+// (the next item's land while the last one still runs), and the other
+// operand pair streams through a ring of kBwdStages stages as tiles of
+// 64 rows (K and V for dQ, up to the diagonal when causal; Q and dO for
+// dK/dV, from the diagonal on, the TPU kernel's qi_min), running ahead
+// across items.  Every product is a wgmma m64n64k16 of one of two
+// forms: both operands K-major in shared memory (the scores S = Q K^T
+// and dP = dO V^T, or S^T = K Q^T and dP^T = V dO^T for dK/dV), or A
+// from registers, where the score accumulator's layout is already the A
+// fragment, and B MN-major in shared memory (dQ += dS K; dV += P^T dO,
+// dK += dS^T Q).  P = exp2(S scale log2(e) - lse log2(e)) and dS = P o
+// (dP - delta) scale are formed in registers, masked only on the
+// diagonal and ragged tiles (masked entries zeroed after the exp), and
+// enter their products as two bf16 terms (`split_frags`), so the
+// kernels compute what the mma.sync ones compute.  Per streamed tile a
+// consumer warpgroup waits for all its products in flight (a group left
+// in flight across the loop's back edge makes ptxas serialize the
+// wgmma), forms P, dS and their splits, then in its turn issues the
+// products of P and dS and the next tile's scores.  The two warpgroups
+// take turns as in the forward (named barriers 3 and 4), so that one's
+// exps and splits overlap the other's products.
+// 64-row streamed tiles keep the scores, dP, both accumulators and the
+// hi/lo fragments of P and dS in registers: dK/dV holds 6 x 32 of them
+// a thread (S^T, dP^T, dK, dV, P^T and dS^T as A fragments), which a
+// 128-row tile (2 x 64 more) would push past the 232 it has.  lse and
+// delta are fp32 rows (BH, T) whose stride 4T TMA cannot describe when
+// T is ragged: dQ loads its rows' two values a thread into registers at
+// each item; for dK/dV one producer warp loads each stage's 64 of each
+// (lse already times log2(e)) with plain loads into the stage, beside
+// the TMA copies (the stage's "full" barrier counts its 32 arrivals and
+// the copies' bytes).  Each kernel writes only its own item's rows,
+// rounded to bf16 through a swizzled tile and one TMA store a tensor
+// (clipping rows past T and columns past D): no atomics, deterministic.
+// Items are handed out longest first in the forward's snake order
+// (`bwd_item`).  Shared memory: dQ 177 KB, dK/dV 193 KB.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdStages = 6;          // streamed tile ring depth
+constexpr int kBwdRows = 64;           // rows per streamed tile
+constexpr uint32_t kBwdTile = 64 * 128;  // 64 rows x 64 bf16 = 8 KB
+// dQ: Q and dO of two items, the dQ tile, the ring (K, V); dK/dV: K and
+// V of two items, the dK and dV tiles, the ring (Q, dO); plus slack to
+// align the tiles to 1024 bytes
+constexpr size_t kDqSmem = 1024 + 5 * kTmaTile + 2 * kBwdStages * kBwdTile;
+constexpr size_t kDkvSmem = 1024 + 6 * kTmaTile + 2 * kBwdStages * kBwdTile;
+
+// Item k of CTA c in a grid of g CTAs, as `tma_item`, mapped to (own
+// tile, head row): for dQ (dkv 0) query tile n_own - 1 - w / bh, whose
+// causal rows see the most keys; for dK/dV key tile w / bh, whose keys
+// the most queries.  Mirrors ops/flash.py `flash_bwd_schedule`.
+__device__ __forceinline__ void bwd_item(int k, int c, int g, int bh,
+                                         int n_own, int dkv, int& tile,
+                                         int& row) {
+  const int w = tma_item(k, c, g);
+  tile = dkv ? w / bh : n_own - 1 - w / bh;
+  row = w % bh;
+}
+
+// x (64 x 64 fp32, wgmma accumulator layout) -> the hi and lo A
+// fragments of its 4 k-steps: hi a[8kk..8kk+3], lo a[8kk+4..8kk+7].
+// hi is rounded (`split2`, |x - hi - lo| <= 2^-18 |x|, as the mma.sync
+// kernels): with the truncating split's 2^-16 the sums of dS Q and P dO,
+// which cancel, left one element in 10^6 outside one bf16 step of the
+// plain version at (B.H, T, D) = (200, 64, 64) and (300, 256, 64).
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&a)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      split2(x[8 * kk + 2 * f], x[8 * kk + 2 * f + 1], a[8 * kk + f],
+             a[8 * kk + 4 + f]);
+    }
+  }
+}
+
+// acc (+)= X B over a 64-row tile B (MN-major at `tile`), X given by
+// its hi/lo fragments; `accumulate` 0 starts acc afresh
+__device__ __forceinline__ void issue_xb(float (&acc)[32],
+                                         const uint32_t (&x)[32],
+                                         uint32_t tile, int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sw128_desc(tile + 2048 * kk);
+    wgmma_pv(acc, x + 8 * kk, db, kk > 0 || accumulate);
+    wgmma_pv(acc, x + 8 * kk + 4, db, 1);
+  }
+  wgmma_commit();
+}
+
+// d = A B^T over D = 64: A the 64 rows at `a`, B the 64 rows at `b`,
+// both K-major
+__device__ __forceinline__ void issue_abt(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss64(d, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk), kk);
+  }
+  wgmma_commit();
+}
+
+// A warpgroup's 64 x 64 fp32 accumulator as bf16 rows into its half of a
+// swizzled tile: 16-byte chunk j of row rl at chunk j ^ (rl % 8)
+__device__ __forceinline__ void stage_rows(unsigned char* half,
+                                           const float (&acc)[32], int wl,
+                                           int g, int tg) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = 16 * wl + g + 8 * h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(half + 128 * rl + 16 * (j ^ g) +
+                                         4 * tg) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// P = exp2(S scale log2(e) - l) in place over one 64 x 64 tile; sc[4j + e]
+// is (row r + 8 (e >> 1), column c0 + 8j + 2tg + (e & 1)).  `ls(j, e)`
+// gives l (lse times log2(e)) of that entry's query: the row's for dQ,
+// the column's for dK/dV.  kEdge: zero the entries whose key is past t
+// or, causal, past the query, and (dK/dV) whose query is past t.
+template <bool kEdge, bool kKeysAreRows, typename L>
+__device__ __forceinline__ void bwd_probs(float (&sc)[32], L ls, int r,
+                                          int c0, int tg, int t, int causal,
+                                          float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(sc[4 * j + e], scale_log2, -ls(j, e)));
+      if (kEdge) {
+        const int row = r + 8 * (e >> 1), col = c0 + 8 * j + 2 * tg + (e & 1);
+        const int qi = kKeysAreRows ? col : row, kj = kKeysAreRows ? row : col;
+        if (kj >= t || (causal && kj > qi) || (kKeysAreRows && qi >= t)) {
+          p = 0.f;
+        }
+      }
+      sc[4 * j + e] = p;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_dq_kernel_tma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tdq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, int bh, int t,
+                        int causal, float scale, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[4 + 2 * kBwdStages];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // slot b: Q, dO; then the dQ tile; then stage s: K, V
+  const uint32_t base = smem_u32(tiles), sdq = base + 4 * kTmaTile;
+  const auto q_at = [&](int b) { return base + kTmaTile * (2 * b); };
+  const auto do_at = [&](int b) { return base + kTmaTile * (2 * b + 1); };
+  const auto k_at = [&](int s) {
+    return base + 5 * kTmaTile + 2 * kBwdTile * s;
+  };
+  const auto v_at = [&](int s) { return k_at(s) + kBwdTile; };
+  const uint32_t bar0 = smem_u32(&bars[0]);
+  const auto q_full = [&](int b) { return bar0 + 8u * b; };
+  const auto q_empty = [&](int b) { return bar0 + 8u * (2 + b); };
+  const auto full = [&](int s) { return bar0 + 8u * (4 + s); };
+  const auto empty = [&](int s) {
+    return bar0 + 8u * (4 + kBwdStages + s);
+  };
+  const int n_q = (t + kTmaRows - 1) / kTmaRows;
+  const int n_k = (t + kBwdRows - 1) / kBwdRows, n_items = bh * n_q;
+  const int rounds = (n_items + gridDim.x - 1) / gridDim.x;
+  const int cta = blockIdx.x, n_cta = gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const auto find = [&](int k) {
+    while (k < rounds && tma_item(k, cta, n_cta) >= n_items) ++k;
+    return k;
+  };
+  // K/V tiles of query tile qt: up to the diagonal when causal
+  const auto n_key_tiles = [&](int qt) {
+    return causal ? min(n_k, (qt + 1) * (kTmaRows / kBwdRows)) : n_k;
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), kTmaConsumers);
+    }
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kTmaConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTmaConsumers / 32) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == kTmaConsumers / 32 && lane == 0) {
+      int it = 0;  // K/V tiles loaded so far
+      for (int k = find(0), n = 0; k < rounds; k = find(k + 1), ++n) {
+        int qt, row;
+        bwd_item(k, cta, n_cta, bh, n_q, 0, qt, row);
+        if (n >= 2) mbar_wait(q_empty(n & 1), ((n >> 1) - 1) & 1);
+        mbar_expect_tx(q_full(n & 1), 2 * kTmaTile);
+        tma_load(q_at(n & 1), &tq, q_full(n & 1), qt * kTmaRows, row);
+        tma_load(do_at(n & 1), &tdo, q_full(n & 1), qt * kTmaRows, row);
+        const int nk = n_key_tiles(qt);
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % kBwdStages;
+          if (it >= kBwdStages) {
+            mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+          }
+          mbar_expect_tx(full(s), 2 * kBwdTile);
+          tma_load(k_at(s), &tk, full(s), i * kBwdRows, row);
+          tma_load(v_at(s), &tv, full(s), i * kBwdRows, row);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups.  Warpgroup wg owns query rows
+  // qt * 128 + 64 wg + [0, 64) of each item; this thread holds rows r and
+  // r + 8.  Round of K/V tile j (S_j and dP_j issued by the round
+  // before): wait for every product in flight, free tile j - 1's stage
+  // and, when tile j - 1 ended an item, store that item's dQ; P_j, dS_j
+  // and its split; then, in this warpgroup's turn, dQ += dS_j K_j, S_{j+1}
+  // and dP_{j+1}.  The last round issues no scores.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = warp / 4, wl = warp % 4, g = lane / 4, tg = lane % 4;
+  const bool storer = wl == 0 && lane == 0;
+  float sc[32];     // S, then P, of the newest tile
+  float dp[32];     // dP, then dS
+  float acc[32];    // dQ of this warpgroup's rows of the item
+  uint32_t da[32];  // dS as hi/lo A fragments
+  float l[2], dl[2];  // lse * log2(e) and delta of rows r, r + 8
+  struct Item {
+    int qt, row, nk, row0, r;  // row0: this warpgroup's first query row
+  };
+  const auto item = [&](int k) {
+    Item x;
+    bwd_item(k, cta, n_cta, bh, n_q, 0, x.qt, x.row);
+    x.nk = n_key_tiles(x.qt);
+    x.row0 = x.qt * kTmaRows + 64 * wg;
+    x.r = x.row0 + 16 * wl + g;
+    return x;
+  };
+  const auto load_stats = [&](const Item& x) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = x.r + 8 * h;
+      const size_t at = static_cast<size_t>(x.row) * t + qi;
+      l[h] = qi < t ? lse[at] * kLog2e : 0.f;
+      dl[h] = qi < t ? delta[at] : 0.f;
+    }
+  };
+  const auto issue_scores = [&](int s, int b) {
+    issue_abt(sc, q_at(b) + kTmaHalf * wg, k_at(s));
+    issue_abt(dp, do_at(b) + kTmaHalf * wg, v_at(s));
+  };
+  const auto probs = [&](const Item& x, int i) {
+    const int k0 = i * kBwdRows;
+    const auto ls = [&](int, int e) { return l[e >> 1]; };
+    if (k0 + kBwdRows > t || (causal && k0 + kBwdRows - 1 > x.row0)) {
+      bwd_probs<true, false>(sc, ls, x.r, k0, tg, t, causal, scale_log2);
+    } else {
+      bwd_probs<false, false>(sc, ls, x.r, k0, tg, t, causal, scale_log2);
+    }
+  };
+  const auto epilogue = [&](const Item& x) {
+    if (storer) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    bar_sync(1 + wg, 128);
+    stage_rows(tiles + 4 * kTmaTile + kTmaHalf * wg, acc, wl, g, tg);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1 + wg, 128);
+    if (storer && x.row0 < t) tma_store(&tdq, sdq + kTmaHalf * wg, x.row0,
+                                        x.row);
+  };
+
+  int kc = find(0), ic = 0, it = 0, n = 0;  // item round, tile, stream, item
+  Item cur = item(kc), prev = cur;
+  load_stats(cur);
+  if (wg == 1) bar_arrive(3, kTmaConsumers);  // warpgroup 0 goes first
+  mbar_wait(q_full(0), 0);
+  mbar_wait(full(0), 0);
+  bar_sync(3 + wg, kTmaConsumers);  // this warpgroup's turn
+  wgmma_fence();
+  issue_scores(0, 0);
+  bar_arrive(4 - wg, kTmaConsumers);  // the other warpgroup's turn
+  while (true) {
+    const int s = it % kBwdStages;
+    wgmma_wait<0>();  // S_j, dP_j and dQ_{j-1}
+    pin(sc);
+    pin(dp);
+    pin(acc);
+    pin(da);
+    if (it > 0) {
+      mbar_arrive(empty((it - 1) % kBwdStages));
+      if (ic == 0) epilogue(prev);
+    }
+    probs(cur, ic);
+    if (ic == cur.nk - 1) mbar_arrive(q_empty(n & 1));  // done with Q, dO
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      dp[e] = sc[e] * (dp[e] - dl[(e >> 1) & 1]) * scale;
+    }
+    split_frags(dp, da);
+    int kn = kc, in = ic + 1, nn = n;
+    if (in == cur.nk) {
+      kn = find(kc + 1);
+      in = 0;
+      nn = n + 1;
+    }
+    if (kn == rounds) {  // the last round: no next tile
+      bar_sync(3 + wg, kTmaConsumers);
+      wgmma_fence();
+      issue_xb(acc, da, k_at(s), ic > 0);
+      // warpgroup 1's last hand-over would have no taker
+      if (wg == 0) bar_arrive(4, kTmaConsumers);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(da);
+      mbar_arrive(empty(s));
+      epilogue(cur);
+      break;
+    }
+    prev = cur;
+    if (in == 0) {
+      cur = item(kn);
+      load_stats(cur);
+      mbar_wait(q_full(nn & 1), (nn >> 1) & 1);
+    }
+    const int s1 = (it + 1) % kBwdStages;
+    mbar_wait(full(s1), ((it + 1) / kBwdStages) & 1);
+    bar_sync(3 + wg, kTmaConsumers);
+    wgmma_fence();
+    issue_xb(acc, da, k_at(s), ic > 0);
+    issue_scores(s1, nn & 1);
+    bar_arrive(4 - wg, kTmaConsumers);
+    kc = kn;
+    ic = in;
+    n = nn;
+    ++it;
+  }
+  if (storer) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_dkv_kernel_tma(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tdk,
+                         const __grid_constant__ CUtensorMap tdv,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, int bh, int t,
+                         int causal, float scale, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[4 + 2 * kBwdStages];
+  // stage s: lse * log2(e) and delta of its 64 queries
+  __shared__ __align__(16) float stats[kBwdStages][2][kBwdRows];
+  unsigned char* tiles =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // slot b: K, V; then the dK and dV tiles; then stage s: Q, dO
+  const uint32_t base = smem_u32(tiles);
+  const uint32_t sdk = base + 4 * kTmaTile, sdv = base + 5 * kTmaTile;
+  const auto k_at = [&](int b) { return base + kTmaTile * (2 * b); };
+  const auto v_at = [&](int b) { return base + kTmaTile * (2 * b + 1); };
+  const auto q_at = [&](int s) {
+    return base + 6 * kTmaTile + 2 * kBwdTile * s;
+  };
+  const auto do_at = [&](int s) { return q_at(s) + kBwdTile; };
+  const uint32_t bar0 = smem_u32(&bars[0]);
+  const auto kv_full = [&](int b) { return bar0 + 8u * b; };
+  const auto kv_empty = [&](int b) { return bar0 + 8u * (2 + b); };
+  const auto full = [&](int s) { return bar0 + 8u * (4 + s); };
+  const auto empty = [&](int s) {
+    return bar0 + 8u * (4 + kBwdStages + s);
+  };
+  const int n_k = (t + kTmaRows - 1) / kTmaRows;
+  const int n_q = (t + kBwdRows - 1) / kBwdRows, n_items = bh * n_k;
+  const int rounds = (n_items + gridDim.x - 1) / gridDim.x;
+  const int cta = blockIdx.x, n_cta = gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const auto find = [&](int k) {
+    while (k < rounds && tma_item(k, cta, n_cta) >= n_items) ++k;
+    return k;
+  };
+  // the first Q/dO tile of key tile kt: the diagonal one when causal
+  const auto first_tile = [&](int kt) {
+    return causal ? kt * (kTmaRows / kBwdRows) : 0;
+  };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kv_full(b), 1);
+      mbar_init(kv_empty(b), kTmaConsumers);
+    }
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1 + 32);  // the copies, and the statistics warp
+      mbar_init(empty(s), kTmaConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTmaConsumers / 32) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int pw = warp - kTmaConsumers / 32;
+    if (pw == 0 && lane == 0) {  // the copies
+      int it = 0;  // Q/dO tiles loaded so far
+      for (int k = find(0), n = 0; k < rounds; k = find(k + 1), ++n) {
+        int kt, row;
+        bwd_item(k, cta, n_cta, bh, n_k, 1, kt, row);
+        if (n >= 2) mbar_wait(kv_empty(n & 1), ((n >> 1) - 1) & 1);
+        mbar_expect_tx(kv_full(n & 1), 2 * kTmaTile);
+        tma_load(k_at(n & 1), &tk, kv_full(n & 1), kt * kTmaRows, row);
+        tma_load(v_at(n & 1), &tv, kv_full(n & 1), kt * kTmaRows, row);
+        for (int i = first_tile(kt); i < n_q; ++i, ++it) {
+          const int s = it % kBwdStages;
+          if (it >= kBwdStages) {
+            mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+          }
+          mbar_expect_tx(full(s), 2 * kBwdTile);
+          tma_load(q_at(s), &tq, full(s), i * kBwdRows, row);
+          tma_load(do_at(s), &tdo, full(s), i * kBwdRows, row);
+        }
+      }
+    } else if (pw == 1) {  // the statistics: 2 queries a lane and stage
+      int it = 0;
+      for (int k = find(0); k < rounds; k = find(k + 1)) {
+        int kt, row;
+        bwd_item(k, cta, n_cta, bh, n_k, 1, kt, row);
+        const size_t sb = static_cast<size_t>(row) * t;
+        for (int i = first_tile(kt); i < n_q; ++i, ++it) {
+          const int s = it % kBwdStages;
+          float v[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int qi = i * kBwdRows + lane + 32 * h;
+            v[2 * h] = qi < t ? lse[sb + qi] * kLog2e : 0.f;
+            v[2 * h + 1] = qi < t ? delta[sb + qi] : 0.f;
+          }
+          if (it >= kBwdStages) {
+            mbar_wait(empty(s), ((it / kBwdStages) & 1) ^ 1);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            stats[s][0][lane + 32 * h] = v[2 * h];
+            stats[s][1][lane + 32 * h] = v[2 * h + 1];
+          }
+          mbar_arrive(full(s));  // releases the stores above
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups.  Warpgroup wg owns keys kt * 128 + 64 wg +
+  // [0, 64) of each item; this thread holds key rows r and r + 8 of the
+  // transposed fragments, whose columns are the tile's queries.  Round
+  // of Q/dO tile j (S^T_j and dP^T_j issued by the round before): wait
+  // for every product in flight, free tile j - 1's stage and, when tile
+  // j - 1 ended an item, store that item's dK and dV; P^T_j, dS^T_j and
+  // their splits; then, in this warpgroup's turn, dV += P^T_j dO_j,
+  // dK += dS^T_j Q_j, S^T_{j+1} and dP^T_{j+1}.  The last round issues
+  // no scores.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = warp / 4, wl = warp % 4, g = lane / 4, tg = lane % 4;
+  const bool storer = wl == 0 && lane == 0;
+  float sc[32];          // S^T, then P^T, of the newest tile
+  float dp[32];          // dP^T, then dS^T
+  float dk[32], dv[32];  // this warpgroup's keys of the item
+  uint32_t pa[32], da[32];  // P^T and dS^T as hi/lo A fragments
+  struct Item {
+    int kt, row, qt0, nq, k0, r;  // k0: this warpgroup's first key
+  };
+  const auto item = [&](int k) {
+    Item x;
+    bwd_item(k, cta, n_cta, bh, n_k, 1, x.kt, x.row);
+    x.qt0 = first_tile(x.kt);
+    x.nq = n_q - x.qt0;
+    x.k0 = x.kt * kTmaRows + 64 * wg;
+    x.r = x.k0 + 16 * wl + g;
+    return x;
+  };
+  const auto issue_scores = [&](int s, int b) {
+    issue_abt(sc, k_at(b) + kTmaHalf * wg, q_at(s));
+    issue_abt(dp, v_at(b) + kTmaHalf * wg, do_at(s));
+  };
+  const auto probs = [&](const Item& x, int i, int s) {
+    const int q0 = (x.qt0 + i) * kBwdRows;
+    const float* ls = stats[s][0];
+    const auto lf = [&](int j, int e) { return ls[8 * j + 2 * tg + (e & 1)]; };
+    if (q0 + kBwdRows > t || x.k0 + 64 > t || (causal && q0 < x.k0 + 63)) {
+      bwd_probs<true, true>(sc, lf, x.r, q0, tg, t, causal, scale_log2);
+    } else {
+      bwd_probs<false, true>(sc, lf, x.r, q0, tg, t, causal, scale_log2);
+    }
+  };
+  const auto epilogue = [&](const Item& x) {
+    if (storer) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    bar_sync(1 + wg, 128);
+    stage_rows(tiles + 4 * kTmaTile + kTmaHalf * wg, dk, wl, g, tg);
+    stage_rows(tiles + 5 * kTmaTile + kTmaHalf * wg, dv, wl, g, tg);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1 + wg, 128);
+    if (storer && x.k0 < t) {
+      tma_store(&tdk, sdk + kTmaHalf * wg, x.k0, x.row);
+      tma_store(&tdv, sdv + kTmaHalf * wg, x.k0, x.row);
+    }
+  };
+
+  int kc = find(0), ic = 0, it = 0, n = 0;  // item round, tile, stream, item
+  Item cur = item(kc), prev = cur;
+  if (wg == 1) bar_arrive(3, kTmaConsumers);  // warpgroup 0 goes first
+  mbar_wait(kv_full(0), 0);
+  mbar_wait(full(0), 0);
+  bar_sync(3 + wg, kTmaConsumers);  // this warpgroup's turn
+  wgmma_fence();
+  issue_scores(0, 0);
+  bar_arrive(4 - wg, kTmaConsumers);  // the other warpgroup's turn
+  while (true) {
+    const int s = it % kBwdStages;
+    wgmma_wait<0>();  // S^T_j, dP^T_j, and dV_{j-1}, dK_{j-1}
+    pin(sc);
+    pin(dp);
+    pin(dk);
+    pin(dv);
+    pin(pa);
+    pin(da);
+    if (it > 0) {
+      mbar_arrive(empty((it - 1) % kBwdStages));
+      if (ic == 0) epilogue(prev);
+    }
+    probs(cur, ic, s);
+    split_frags(sc, pa);
+    if (ic == cur.nq - 1) mbar_arrive(kv_empty(n & 1));  // done with K, V
+    const float* dls = stats[s][1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * tg);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[4 * j + e] =
+            sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x)) * scale;
+      }
+    }
+    split_frags(dp, da);
+    int kn = kc, in = ic + 1, nn = n;
+    if (in == cur.nq) {
+      kn = find(kc + 1);
+      in = 0;
+      nn = n + 1;
+    }
+    if (kn == rounds) {  // the last round: no next tile
+      bar_sync(3 + wg, kTmaConsumers);
+      wgmma_fence();
+      issue_xb(dv, pa, do_at(s), ic > 0);
+      issue_xb(dk, da, q_at(s), ic > 0);
+      if (wg == 0) bar_arrive(4, kTmaConsumers);
+      wgmma_wait<0>();
+      pin(dk);
+      pin(dv);
+      pin(pa);
+      pin(da);
+      mbar_arrive(empty(s));
+      epilogue(cur);
+      break;
+    }
+    prev = cur;
+    if (in == 0) {
+      cur = item(kn);
+      mbar_wait(kv_full(nn & 1), (nn >> 1) & 1);
+    }
+    const int s1 = (it + 1) % kBwdStages;
+    mbar_wait(full(s1), ((it + 1) / kBwdStages) & 1);
+    bar_sync(3 + wg, kTmaConsumers);
+    wgmma_fence();
+    issue_xb(dv, pa, do_at(s), ic > 0);
+    issue_xb(dk, da, q_at(s), ic > 0);
+    issue_scores(s1, nn & 1);
+    bar_arrive(4 - wg, kTmaConsumers);
+    kc = kn;
+    ic = in;
+    n = nn;
+    ++it;
+  }
+  if (storer) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 constexpr size_t kFwdMmaSmem = 3 * kTileH;
 constexpr size_t kDqMmaSmem = 2 * kTileH;
 constexpr size_t kDkvMmaSmem = 2 * kTileH + 2 * kTile * sizeof(float);
@@ -1515,6 +2139,18 @@ int rows_map(CUtensorMap* map, const void* base, int bh, int t, int d,
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The persistent kernels' grid: one CTA per SM, or per item (128 rows
+// of a head row) when there are fewer.
+int persistent_grid(int bh, int t, int* grid) {
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long items = static_cast<long>(bh) * ((t + kTmaRows - 1) / kTmaRows);
+  if (items > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  *grid = static_cast<int>(items < sms ? items : sms);
+  return 0;
+}
+
 // TMA reads rows whose byte stride (2d) is a multiple of 16 from bases
 // aligned to 16 bytes; the wrapper sends nothing else here.
 int launch_fwd_tma(const void* q, const void* k, const void* v, void* out,
@@ -1531,22 +2167,69 @@ int launch_fwd_tma(const void* q, const void* k, const void* v, void* out,
   if (rc == 0) rc = rows_map(&mv, v, bh, t, d, kTmaRows);
   if (rc == 0) rc = rows_map(&mo, out, bh, t, d, kTmaRows / 2);
   if (rc) return rc;
-  // persistent: one CTA per SM (or per item, when there are fewer)
-  int dev = 0, sms = 0;
-  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long items = static_cast<long>(bh) * ((t + kTmaRows - 1) / kTmaRows);
-  if (items > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>(items < sms ? items : sms);
+  int grid = 0;
+  if (int e = persistent_grid(bh, t, &grid)) return e;
   flash_fwd_kernel_tma<<<grid, kTmaThreads, kTmaSmem, stream>>>(
       mq, mk, mv, mo, static_cast<float*>(lse), bh, t, causal,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 with D <= 64 runs on the tensor cores (the forward here only
-// where TMA cannot describe the rows: flash_fwd_bf16_tma takes the
-// rest); fp32, and bf16 with D in (64, 128], on the CUDA cores.
+// The wgmma backward: the same rule for every row operand.
+int launch_dq_tma(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int bh, int t, int d, int causal, float scale,
+                  cudaStream_t stream) {
+  if (d > 64 || d % 8 || !aligned16({q, k, v, dout, dq})) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const int opt = allow_smem(flash_dq_kernel_tma, kDqSmem);
+  if (opt) return opt;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  int rc = rows_map(&mq, q, bh, t, d, kTmaRows);
+  if (rc == 0) rc = rows_map(&mdo, dout, bh, t, d, kTmaRows);
+  if (rc == 0) rc = rows_map(&mk, k, bh, t, d, kBwdRows);
+  if (rc == 0) rc = rows_map(&mv, v, bh, t, d, kBwdRows);
+  if (rc == 0) rc = rows_map(&mdq, dq, bh, t, d, kTmaRows / 2);
+  int grid = 0;
+  if (rc == 0) rc = persistent_grid(bh, t, &grid);
+  if (rc) return rc;
+  flash_dq_kernel_tma<<<grid, kTmaThreads, kDqSmem, stream>>>(
+      mq, mk, mv, mdo, mdq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bh, t, causal, scale,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_tma(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int bh, int t, int d, int causal,
+                   float scale, cudaStream_t stream) {
+  if (d > 64 || d % 8 || !aligned16({q, k, v, dout, dk, dv})) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const int opt = allow_smem(flash_dkv_kernel_tma, kDkvSmem);
+  if (opt) return opt;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  int rc = rows_map(&mk, k, bh, t, d, kTmaRows);
+  if (rc == 0) rc = rows_map(&mv, v, bh, t, d, kTmaRows);
+  if (rc == 0) rc = rows_map(&mq, q, bh, t, d, kBwdRows);
+  if (rc == 0) rc = rows_map(&mdo, dout, bh, t, d, kBwdRows);
+  if (rc == 0) rc = rows_map(&mdk, dk, bh, t, d, kTmaRows / 2);
+  if (rc == 0) rc = rows_map(&mdv, dv, bh, t, d, kTmaRows / 2);
+  int grid = 0;
+  if (rc == 0) rc = persistent_grid(bh, t, &grid);
+  if (rc) return rc;
+  flash_dkv_kernel_tma<<<grid, kTmaThreads, kDkvSmem, stream>>>(
+      mq, mk, mv, mdo, mdk, mdv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bh, t, causal, scale,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 with D <= 64 runs on the tensor cores (here only where TMA
+// cannot describe the rows: flash_{fwd,dq,dkv}_bf16_tma take the rest);
+// fp32, and bf16 with D in (64, 128], on the CUDA cores.
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int bh, int t, int d, int causal, float scale, void* stream) {
@@ -1663,6 +2346,29 @@ int flash_fwd_bf16_tma(const void* q, const void* k, const void* v,
   if (bh == 0) return 0;
   return launch_fwd_tma(q, k, v, out, lse, bh, t, d, causal, scale,
                         static_cast<cudaStream_t>(stream));
+}
+
+// bf16, D <= 64 and a multiple of 8, every row operand 16-byte
+// aligned: the wgmma backward fed by TMA (the wrapper sends only such
+// operands here)
+int flash_dq_bf16_tma(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* g, int bh, int t, int d, int causal, float scale,
+                      void* stream) {
+  if (int rc = check(bh, t, d)) return rc;
+  if (bh == 0) return 0;
+  return launch_dq_tma(q, k, v, dout, lse, delta, g, bh, t, d, causal, scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+int flash_dkv_bf16_tma(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* gk, void* gv, int bh, int t, int d, int causal,
+                       float scale, void* stream) {
+  if (int rc = check(bh, t, d)) return rc;
+  if (bh == 0) return 0;
+  return launch_dkv_tma(q, k, v, dout, lse, delta, gk, gv, bh, t, d, causal,
+                        scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_error_string(int code) {

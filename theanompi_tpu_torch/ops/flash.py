@@ -42,10 +42,12 @@ zeroed again after the exp, so a fully masked row gives no NaN.  On
 the card, bf16 with D <= 64 runs on the tensor cores: the bf16 products
 are exact in fp32, and P and dS enter their products as two bf16 terms
 each (16 significant bits), so the outputs stay within one bf16 step
-of the plain version; fp32, and bf16 with D > 64, run fp32 FMAs.  The
-bf16 forward with D a multiple of 8 and every operand on 16 bytes runs
-the ``wgmma`` instance fed by TMA, the other bf16 forwards with
-D <= 64 the ``mma.sync`` one (``flash_fwd_instance``).
+of the plain version; fp32, and bf16 with D > 64, run fp32 FMAs.  A
+bf16 call with D a multiple of 8 and every row operand on 16 bytes
+runs the ``wgmma`` instance fed by TMA, in a persistent grid, for the
+forward, dQ and dK/dV alike; the other bf16 calls with D <= 64 the
+``mma.sync`` one (``flash_fwd_instance``, ``flash_bwd_instance``: a
+choice by shape, not a fallback).
 """
 
 from __future__ import annotations
@@ -192,8 +194,9 @@ def _library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32, i32, i32, i32, f32, ptr]  # bh, t, d, causal, scale, stream
     for name, n_ptr in (("fwd_f32", 5), ("fwd_bf16", 5), ("fwd_bf16_tma", 5),
-                        ("dq_f32", 7), ("dq_bf16", 7), ("dkv_f32", 8),
-                        ("dkv_bf16", 8)):
+                        ("dq_f32", 7), ("dq_bf16", 7), ("dq_bf16_tma", 7),
+                        ("dkv_f32", 8), ("dkv_bf16", 8),
+                        ("dkv_bf16_tma", 8)):
         fn = getattr(lib, f"flash_{name}")
         fn.argtypes = [ptr] * n_ptr + dims
         fn.restype = ctypes.c_int
@@ -234,7 +237,28 @@ def flash_fwd_instance(dtype: torch.dtype, d: int, ptrs) -> str:
     return "mma"
 
 
-FWD_TILE = 128  # query rows per item and keys per K/V tile, wgmma forward
+def flash_bwd_instance(dtype: torch.dtype, d: int, ptrs) -> str:
+    """The dQ or dK/dV kernel instance for rows of ``dtype`` and head dim
+    ``d`` at the addresses ``ptrs`` of every row operand (q, k, v, dout
+    and the outputs; lse and Δ are read with plain loads): the forward's
+    rule (``flash_fwd_instance``) applied to all of them — ``'wgmma'``
+    (fed by TMA) for bf16 with ``d <= 64``, ``d % 8 == 0`` and every base
+    on 16 bytes, ``'mma'`` for the other bf16 rows with ``d <= 64``,
+    ``'simt'`` for the rest."""
+    return flash_fwd_instance(dtype, d, ptrs)
+
+
+FWD_TILE = 128  # rows per item (queries, or keys for dK/dV); forward K/V tile
+BWD_TILE = 64   # rows per streamed tile of the wgmma backward
+
+
+def _snake(n_items: int, n_ctas: int) -> list:
+    """``tma_item``: each CTA's item indices in order; the CTAs take the
+    items in rounds, forwards in even rounds and backwards in odd ones."""
+    rounds = -(-n_items // n_ctas)
+    return [[w for w in (k * n_ctas + (c if k % 2 == 0 else n_ctas - 1 - c)
+                         for k in range(rounds)) if w < n_items]
+            for c in range(n_ctas)]
 
 
 def flash_fwd_schedule(bh: int, t: int, causal: bool,
@@ -247,17 +271,44 @@ def flash_fwd_schedule(bh: int, t: int, causal: bool,
     first); the CTAs take them in rounds, forwards in even rounds and
     backwards in odd ones."""
     n_q = -(-t // FWD_TILE)
-    n_items = bh * n_q
-    rounds = -(-n_items // n_ctas)
     plan = []
-    for c in range(n_ctas):
-        mine = []
-        for k in range(rounds):
-            w = k * n_ctas + (c if k % 2 == 0 else n_ctas - 1 - c)
-            if w < n_items:
-                qt = n_q - 1 - w // bh
-                mine.append((qt, w % bh, min(n_q, qt + 1) if causal else n_q))
-        plan.append(mine)
+    for mine in _snake(bh * n_q, n_ctas):
+        items = []
+        for w in mine:
+            qt = n_q - 1 - w // bh
+            items.append((qt, w % bh, min(n_q, qt + 1) if causal else n_q))
+        plan.append(items)
+    return plan
+
+
+def flash_bwd_schedule(kernel: str, bh: int, t: int, causal: bool,
+                       n_ctas: int) -> list:
+    """The wgmma backward's persistent schedule (``bwd_item`` in
+    ``csrc/flash_attention.cu``) for ``kernel`` ``'dq'`` or ``'dkv'``:
+    for each CTA its items in order as ``(own tile, head row, streamed
+    tiles)``, in the forward's snake order.  An item owns 128 rows
+    (queries for dQ, keys for dK/dV) and streams 64-row tiles of the
+    other side.  dQ: item ``w`` is query tile ``n − 1 − w // bh``, which
+    streams the key tiles up to its diagonal when causal; dK/dV: key tile
+    ``w // bh``, which streams the query tiles from its diagonal on.
+    Either way the longest items go first."""
+    n_own, n_str = -(-t // FWD_TILE), -(-t // BWD_TILE)
+    per = FWD_TILE // BWD_TILE
+    plan = []
+    for mine in _snake(bh * n_own, n_ctas):
+        items = []
+        for w in mine:
+            if kernel == "dq":
+                tile = n_own - 1 - w // bh
+                n = min(n_str, (tile + 1) * per) if causal else n_str
+            elif kernel == "dkv":
+                tile = w // bh
+                n = n_str - tile * per if causal else n_str
+            else:
+                raise ValueError(f"kernel must be 'dq' or 'dkv', not "
+                                 f"{kernel!r}")
+            items.append((tile, w % bh, n))
+        plan.append(items)
     return plan
 
 
@@ -268,8 +319,12 @@ def _launch(name: str, x: torch.Tensor, ptrs, causal: bool,
     bh, t, d = x.shape
     addrs = [p.data_ptr() for p in ptrs]
     fn = f"flash_{name}_{_SUFFIX[x.dtype]}"
-    if name == "fwd" and flash_fwd_instance(x.dtype, d,
-                                            addrs[:4]) == "wgmma":
+    # row operands: q, k, v and out; or q, k, v, dout and the outputs
+    if name == "fwd":
+        instance = flash_fwd_instance(x.dtype, d, addrs[:4])
+    else:
+        instance = flash_bwd_instance(x.dtype, d, addrs[:4] + addrs[6:])
+    if instance == "wgmma":
         fn += "_tma"
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _library()

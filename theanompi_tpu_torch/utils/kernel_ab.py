@@ -1,7 +1,7 @@
-"""Time two trees' flash forward and max-pool backward kernels on one card.
+"""Time two trees' flash and max-pool backward kernels on one card.
 
     python3 theanompi_tpu_torch/utils/kernel_ab.py OLD_TREE NEW_TREE \
-        [--order old,new,new,old] [--out FILE]
+        [--order old,new,new,old] [--lm-step] [--out FILE]
 
 Each tree is a checkout of the repository (``OLD_TREE`` typically a
 ``git archive`` of the parent commit in an ignored directory).  For
@@ -14,8 +14,18 @@ memset before each call) and as the median of 30 calls:
 - ``flash_fwd`` on bf16 rows at the LM path's shape (B·H 64, T 1024,
   D 64, causal), and ``F.scaled_dot_product_attention`` on the same
   inputs (the one-call yardstick);
+- ``flash_dq`` and ``flash_dkv`` on the same rows, with dO from the
+  seed and lse from that tree's ``flash_fwd``, and aten's
+  ``_scaled_dot_product_flash_attention_backward`` alone, fed what
+  aten's flash forward returns (dQ, dK and dV in one call);
 - ``maxpool_bwd`` (bf16, 3×3/2) at AlexNet-128's three pool inputs at
   batch 128, and aten's ``max_pool2d_with_indices_backward``;
+- with ``--lm-step``, the end-to-end training step of ``TransformerLM``
+  at the serving flagship's width (d_model 512, 8 heads, 8 layers,
+  vocab 4096, seq_len 1024), batch 8, bf16, flash, through
+  ``BSP().init`` on a world of 1: ``utils.benchmark.measure_step_time``
+  over 20 steps, five times, the median (host clock after a device
+  sync, so host dispatch is in it);
 
 and prints one JSON line.  The parent prints the card's name and power
 limit (``nvidia-smi``) and every child's line, then the medians per
@@ -31,12 +41,34 @@ import subprocess
 import sys
 
 LM_ROWS = (64, 1024, 64)
-LM_LAYERS = 8  # flash_fwd launches per LM forward pass
+LM_LAYERS = 8  # launches of each flash kernel per LM step
 POOL_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256), (128, 7, 7, 256))
 ITERS = 30
 
 
-def _child() -> dict:
+LM_STEP_CFG = dict(d_model=512, n_heads=8, n_layers=LM_LAYERS,
+                   vocab_size=4096, seq_len=1024, batch_size=8,
+                   compute_dtype="bfloat16", attn_impl="flash",
+                   exch_strategy="ar", n_synth_train=8, n_synth_val=1,
+                   n_epochs=1)
+
+
+def _lm_step_ms(dev) -> float:
+    """Median of five ``measure_step_time`` windows of the LM step."""
+    import numpy as np
+
+    from theanompi_tpu_torch import BSP
+    from theanompi_tpu_torch.utils.benchmark import measure_step_time
+
+    rule = BSP()
+    rule.init(devices=1, modelfile="theanompi_tpu_torch.models.transformer",
+              modelclass="TransformerLM", model_config=dict(LM_STEP_CFG),
+              device=dev)
+    return float(np.median([1e3 * measure_step_time(rule.model, n_steps=20)
+                            for _ in range(5)]))
+
+
+def _child(lm_step: bool) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -88,21 +120,43 @@ def _child() -> dict:
             lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 dy_nchw, x_nchw, [3, 3], [2, 2], [0, 0], [1, 1], False,
                 idx)))
+    do = torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)).to(
+        dev).bfloat16()
+    o, lse = FL.flash_fwd(q, k, v, True, scale)
+    bwd = (q, k, v, do, lse, (do.float() * o.float()).sum(dim=-1), True,
+           scale)
+    out["flash_dq_ms"] = time_ms(lambda: FL.flash_dq(*bwd))
+    out["flash_dkv_ms"] = time_ms(lambda: FL.flash_dkv(*bwd))
+    o4, lse4, cq, ck, mq, mk, seed, offset, _ = (
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, True, False, scale=scale))
+    do4 = do.view(1, bh, t, d)
+    out["aten_bwd_ms"] = time_ms(
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed,
+            offset, scale=scale))
     out["flash_fwd_ms_per_step"] = LM_LAYERS * out["flash_fwd_ms"]
     out["sdpa_fwd_ms_per_step"] = LM_LAYERS * out["sdpa_fwd_ms"]
+    out["flash_bwd_ms_per_step"] = LM_LAYERS * (out["flash_dq_ms"]
+                                                + out["flash_dkv_ms"])
+    out["aten_bwd_ms_per_step"] = LM_LAYERS * out["aten_bwd_ms"]
     out["maxpool_bwd_ms_per_step"] = sum(out["maxpool_bwd_ms"])
     out["aten_pool_bwd_ms_per_step"] = sum(out["aten_pool_bwd_ms"])
+    if lm_step:
+        out["lm_step_ms"] = _lm_step_ms(dev)
     return out
 
 
 def main() -> int:
-    if len(sys.argv) == 2 and sys.argv[1] == "--child":
-        print(json.dumps(_child()))
+    if len(sys.argv) >= 2 and sys.argv[1] == "--child":
+        print(json.dumps(_child("--lm-step" in sys.argv[2:])))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--order", default="old,new,new,old")
+    ap.add_argument("--lm-step", action="store_true",
+                    help="also time the LM training step (end to end)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = subprocess.run(
@@ -115,21 +169,22 @@ def main() -> int:
     for label in args.order.split(","):
         env = dict(os.environ, PYTHONPATH=trees[label])
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child"],
+            [sys.executable, os.path.abspath(__file__), "--child"]
+            + (["--lm-step"] if args.lm_step else []),
             cwd=trees[label], env=env, check=True, capture_output=True,
             text=True)
         row = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
                    label=label)
         runs.append(row)
         print(json.dumps(row))
+    keys = ("flash_fwd_ms_per_step", "sdpa_fwd_ms_per_step",
+            "flash_bwd_ms_per_step", "aten_bwd_ms_per_step",
+            "maxpool_bwd_ms_per_step", "aten_pool_bwd_ms_per_step")
+    keys += ("lm_step_ms",) if args.lm_step else ()
     summary = {}
     for label in trees:
         mine = [r for r in runs if r["label"] == label]
-        summary[label] = {
-            key: sorted(r[key] for r in mine)
-            for key in ("flash_fwd_ms_per_step", "sdpa_fwd_ms_per_step",
-                        "maxpool_bwd_ms_per_step",
-                        "aten_pool_bwd_ms_per_step")}
+        summary[label] = {key: sorted(r[key] for r in mine) for key in keys}
     result = dict(card=card, order=args.order, runs=runs, summary=summary)
     print(json.dumps(dict(card=card, summary=summary)))
     if args.out:
