@@ -12,17 +12,21 @@ Phases, each of which raises on failure (nothing is caught):
    ``csrc/``, one ``nvcc`` each, all at once.
 3. kernel vs plain (serving) — the paged decode attention kernel
    against its plain PyTorch version at the serving path's full width
-   (32 lanes, 8 heads, head_dim 64, block 32, 32-entry tables, lengths
-   0..1023), fp32 and bf16 pools; times of the kernel, the plain
+   (32 lanes, 8 heads, head_dim 64, block 32, 32-entry tables) in two
+   shapes: the kernel shape (lengths 0..1023 with boundary cases) and
+   the serve run's shape (8 live lanes at the serve prompts' lengths
+   plus 16, 24 lanes at length 0 with all-zero tables), on fp32, bf16
+   and int8 pools (int8: 967 blocks, the fp32 pool's bytes, rows
+   quantized by ``quantize_rows``); each call's instance asserted
+   (``paged_instance``: ``bulk`` here); times of the kernel, the plain
    version and ``F.scaled_dot_product_attention`` over the pre-gathered
-   image (the one-call yardstick, used nowhere in the port), beside the
-   bound.  Then the int8 kernel (int8 pool of 967 blocks, the fp32
-   pool's bytes; rows quantized by ``quantize_rows``; the same lengths)
-   against its plain version (dequantized image, atol 1e-5; also on a
-   K pool that starts on an odd byte, and at head_dim 37 and 128), timed
-   beside its bound and SDPA over the image dequantized beforehand (not
-   the same function: no single PyTorch call attends int8 rows with
-   per-(row, head) scales, so its ``library_ms`` is null).
+   image (the one-call yardstick, used nowhere in the port; for int8
+   over the image dequantized beforehand, not the same function, so its
+   ``library_ms`` is null), beside the bound.  Then the edge cases,
+   fp32, bf16 and int8, at the unchanged ATOL: lengths 0, bs − 1, bs, a
+   full table and both sides of a split boundary; head_dim 128 (bulk)
+   and 37 (general); an int8 K pool that starts on an odd byte
+   (general).
 4. kernels vs plain (training) — LRN forward and backward (size 5) on
    AlexNet-128's two LRN inputs at batch 128, (128,32,32,96) and
    (128,15,15,256), and the max-pool backward on its three 3×3/2
@@ -44,7 +48,9 @@ Phases, each of which raises on failure (nothing is caught):
    blocks, prefill chunk 256) and ``ContinuousBatchingScheduler``: 8
    greedy requests, prompts of 16..256 tokens, 32 new tokens each.
    The kernel's launch count over this run must equal n_layers × decode
-   ticks, and every request's tokens must equal greedy decoding by the
+   ticks, every launch on the bulk instance (the wrapper's
+   ``bulk_launches``), and every request's tokens must equal greedy
+   decoding by the
    no-cache full-recompute forward on the card.  Then the same 8
    requests from the int8 KV cache (``kv_dtype='int8'``, 967 blocks in
    the fp32 pool's bytes): int8 kernel launches = n_layers × decode
@@ -56,7 +62,13 @@ Phases, each of which raises on failure (nothing is caught):
    Then 4 seeded sampled requests (T 0.8, top-k 50) on the fp32 pool,
    interleaved with 2 greedy ones and then each alone: the same tokens
    both times, every token inside its row's top-k, tokens equal to the
-   CPU's.
+   CPU's.  Last, after every counted serve run, a decode-tick profile
+   of each pool (``torch.profiler`` over the 8 requests served again,
+   the engine's ``record_function`` ranges marking ticks, prefills and
+   KV writes): per tick the device time of the paged kernel, the GEMMs,
+   the KV write (int8: quantize on write), memcpy and the rest, kernels
+   per tick, and the device's idle share inside the ticks and over the
+   run.
 6. train — ``BSP().init(devices=1, ...)`` / ``rule.wait()`` for
    AlexNet-128 (1000 classes, batch 128, bf16 compute,
    ``lrn_impl='pallas'``, ``pool_grad='pallas'``; seeded random
@@ -89,8 +101,8 @@ Phases, each of which raises on failure (nothing is caught):
    and dK/dV fed by TMA (asserted per row).  Then the bf16 edge cases
    of all three: T 1, 127, 128 and 129, D 16, 32, 40, 64 (the wgmma
    instances) and 36 (mma.sync), causal and full, and q off 16 bytes
-   (mma.sync); and dQ, dK/dV with several items a CTA at (B·H, T, D) =
-   (200, 64, 64) and (300, 256, 64), causal and full.
+   (mma.sync); and the forward, dQ and dK/dV with several items a CTA
+   at (B·H, T, D) = (200, 64, 64) and (300, 256, 64), causal and full.
 9. LM train — ``BSP().init(devices=1, ...)`` / ``rule.wait()`` for
    ``TransformerLM`` at the serving config's full width (d_model 512, 8
    heads, 8 layers, vocab 4096, seq_len 1024) with batch 8, bf16
@@ -143,6 +155,7 @@ when no card is present or the port is not importable.
 
 from __future__ import annotations
 
+import bisect
 import hashlib
 import importlib.util
 import json
@@ -172,11 +185,15 @@ from theanompi_tpu_torch.parallel.exchanger import (
     BSP_Exchanger, blocks_per_shard,
 )
 from theanompi_tpu_torch.runtime.dist import destroy_process_group
+from theanompi_tpu_torch.utils import kernel_ab as KA
 from theanompi_tpu_torch.utils.benchmark import (
     images_per_sec, measure_step_time,
 )
 from theanompi_tpu_torch.serving import (
     ContinuousBatchingScheduler, PagedServingEngine, Request, Sampler,
+)
+from theanompi_tpu_torch.serving.paging import (
+    KV_WRITE_RANGE, PREFILL_RANGE, TICK_RANGE,
 )
 from theanompi_tpu_torch.serving.sampling import gumbel_noise, request_seed
 
@@ -184,16 +201,13 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
-SERVE_CFG = dict(d_model=512, n_heads=8, n_layers=8, vocab_size=4096,
-                 seq_len=1024)
-SERVE_ENGINE = dict(n_slots=32, max_len=1024, block_size=32, n_blocks=257,
-                    prefill_chunk=256)
-N_REQUESTS, PROMPT_LO, PROMPT_HI, NEW_TOKENS = 8, 16, 256, 32
+# the serving flagship and its 8 greedy requests (utils.kernel_ab owns
+# them, so that its A/B serves the same traffic)
+SERVE_CFG, SERVE_ENGINE = KA.SERVE_CFG, KA.SERVE_ENGINE
+N_REQUESTS, PROMPT_LO = KA.SERVE_REQUESTS["n"], KA.SERVE_REQUESTS["lo"]
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.int8: 1e-5}
 TIE_MARGIN = 1e-4
-# the int8 KV cache: as many int8 blocks as fit in the fp32 pool's bytes
-# (kv_block_bytes per (row, head): fp32 2·4·hd, int8 2·(hd + 4))
-I8_BLOCKS = (SERVE_ENGINE["n_blocks"] * 2 * 4 * 64) // (2 * (64 + 4))
+I8_BLOCKS = KA.I8_BLOCKS  # int8 blocks in the fp32 pool's bytes
 # card vs CPU tokens (int8 pool; sampled requests): the two sides' fp32
 # logits differ in summation order, and an int8 payload may land one
 # quantum apart where a value sits on a rounding edge; a divergence
@@ -322,12 +336,15 @@ def phase_build() -> None:
 def _time_ms(fn, flush: torch.Tensor, iters: int = 30,
              warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``iters`` calls, each with a
-    cold L2 (a 256 MiB memset between calls, which also keeps the
-    device busy while the host enqueues the timed call)."""
+    cold L2 (a 256 MiB memset between calls, twice: the memsets also
+    keep the device busy while the host enqueues the timed call, and one
+    (~90 µs on an H100) is shorter than the paged wrapper's host work at
+    times, which then lands in the reading)."""
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
+        flush.zero_()
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -339,8 +356,144 @@ def _time_ms(fn, flush: torch.Tensor, iters: int = 30,
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
+def _paged_bound(lengths_np, h, hd, esize, bs) -> tuple:
+    """(bytes, ops) of one call: each live K/V row once (int8: hd bytes
+    and an fp32 scale per head), q and out, the live table entries and
+    the lengths; 2·hd flops a (row, head) for q·k and as many for p·v
+    (int8: 2·hd more for the dequantization)."""
+    s_ = len(lengths_np)
+    live_rows = int((lengths_np.astype(np.int64) + 1).sum())
+    live_blocks = int((lengths_np // bs + 1).sum())
+    row = hd + 4 if esize == 1 else hd * esize
+    nbytes = (2 * live_rows * h * row + 2 * s_ * h * hd * 4
+              + live_blocks * 4 + s_ * 4)
+    ops = (6 if esize == 1 else 4) * live_rows * h * hd
+    return nbytes, ops
+
+
+def _paged_measure(label, q, pools, tables, lengths_np, bs, flush,
+                   want_instance) -> dict:
+    """The paged kernel on ``pools`` ((k, v) or (k, v, k_scale,
+    v_scale)) against its plain version at ATOL, the instance it ran
+    asserted; then timed (cold L2) beside its plain version, the
+    one-call yardstick and the bound."""
+    dev, (s_, h, hd) = q.device, q.shape
+    dt = pools[0].dtype
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    scale = hd ** -0.5
+    scales = dict(k_scale=pools[2], v_scale=pools[3]) if len(pools) == 4 \
+        else {}
+    inst = PA.paged_instance(dt, h, hd, bs, [t.data_ptr() for t in pools],
+                             pools[0].shape[0])
+    if inst != want_instance:
+        raise AssertionError(f"paged {label} ({dt}): instance {inst}, want "
+                             f"{want_instance}")
+
+    def kern():
+        return PA.paged_decode_attention(
+            q, pools[0], pools[1], tables, lengths, block_size=bs,
+            scale=scale, **scales)
+
+    if dt == torch.int8:
+        def plain():
+            return PA.paged_decode_attention_i8_plain(
+                q, *pools, tables, lengths, block_size=bs, scale=scale)
+    else:
+        def plain():
+            return PA.paged_decode_attention_plain(
+                q, pools[0], pools[1], tables, lengths, block_size=bs,
+                scale=scale)
+
+    got = _ran_instance(f"paged {label}", kern, dt, inst)
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or err > ATOL[dt]:
+        raise AssertionError(
+            f"paged {label} kernel vs plain ({dt}): max |err| {err} > "
+            f"{ATOL[dt]}")
+    # one-call yardstick: SDPA over the image gathered beforehand (int8:
+    # dequantized beforehand, not the same function: no one PyTorch call
+    # attends int8 rows with per-(row, head) scales)
+    rows = PA.image_rows(tables, bs)
+    if dt == torch.int8:
+        k_img = pools[0][rows].float() * pools[2][rows][..., None]
+        v_img = pools[1][rows].float() * pools[3][rows][..., None]
+        q_l = q[:, :, None, :]
+    else:
+        k_img, v_img = pools[0][rows], pools[1][rows]
+        q_l = q.to(dt)[:, :, None, :]
+    k_img = k_img.permute(0, 2, 1, 3).contiguous()  # (S, H, T, hd)
+    v_img = v_img.permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(rows.shape[1], device=dev)[None, :]
+            <= lengths.long()[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q_l, k_img, v_img,
+                                              attn_mask=mask, scale=scale)
+
+    sdpa_err = float((sdpa()[:, :, 0].float() - want).abs().max())
+    nbytes, ops = _paged_bound(lengths_np, h, hd, pools[0].element_size(),
+                               bs)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    sdpa_ms = _time_ms(sdpa, flush)
+    res = dict(
+        max_abs_err=err, instance=inst, ms=_time_ms(kern, flush),
+        plain_ms=_time_ms(plain, flush), bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, sdpa_max_abs_err=sdpa_err,
+        library_ms=None if dt == torch.int8 else sdpa_ms,
+        live_rows=int((lengths_np.astype(np.int64) + 1).sum()),
+    )
+    if dt == torch.int8:
+        res["sdpa_dequantized_image_ms"] = sdpa_ms
+    what = ("sdpa on the dequantized image (not the same function)"
+            if dt == torch.int8 else "sdpa")
+    print(f"paged_decode_attention {str(dt).replace('torch.', '')} {label} "
+          f"({inst}): max|err| {err:.3e} (atol {ATOL[dt]}), kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, {what} "
+          f"{sdpa_ms:.4f} ms (max|err| {sdpa_err:.3e}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+          f"Σ(len+1)={res['live_rows']})")
+    return res
+
+
+def _paged_wrapper(dt):
+    """The wrapper whose counters a paged call on ``dt`` pools moves."""
+    return (PA.paged_decode_attention_i8 if dt == torch.int8
+            else PA.paged_decode_attention)
+
+
+def _ran_instance(what, call, dt, want_instance):
+    """``call()`` (one paged kernel call), asserting by the wrapper's
+    counters that it launched once and ran ``want_instance``."""
+    w = _paged_wrapper(dt)
+    n0, b0 = w.launches, w.bulk_launches
+    out = call()
+    ran = "bulk" if w.bulk_launches - b0 == 1 else "general"
+    if w.launches - n0 != 1 or ran != want_instance:
+        raise AssertionError(
+            f"{what} ({dt}): {w.launches - n0} launches, "
+            f"{w.bulk_launches - b0} bulk; want one {want_instance}")
+    return out
+
+
+def _pools(dt, rng, rows, h, hd, dev) -> tuple:
+    """Seeded K and V pools of ``rows`` rows in ``dt``; int8 rows
+    quantized by ``quantize_rows``, with their scales after them."""
+    k, v = (torch.from_numpy(rng.randn(rows, h, hd).astype(np.float32))
+            .to(dev) for _ in range(2))
+    if dt == torch.int8:
+        (kq, ks), (vq, vs) = Q.quantize_rows(k), Q.quantize_rows(v)
+        return kq, vq, ks, vs
+    return k.to(dt), v.to(dt)
+
+
 def phase_kernel(dev: torch.device) -> dict:
-    """The kernel against its plain version at the serving shapes."""
+    """The paged kernel against its plain version at the serving shapes:
+    the kernel shape (32 lanes, lengths 0..1023 with boundary cases) and
+    the serve run's shape (8 live lanes at the serve prompts' lengths
+    plus 16, 24 lanes at length 0 with all-zero tables), fp32, bf16 and
+    int8 pools; then the edge cases."""
     s_, h, hd, bs, nt = 32, 8, 64, 32, 32
     n_blocks = SERVE_ENGINE["n_blocks"]
     rng = np.random.RandomState(SEED)
@@ -357,202 +510,107 @@ def phase_kernel(dev: torch.device) -> dict:
     # a block, the whole table
     lengths_np[:6] = [0, bs - 1, bs, 2 * bs, nt * bs // 2 - 1, nt * bs - 1]
     tables = torch.from_numpy(tables_np).to(dev)
-    lengths = torch.from_numpy(lengths_np).to(dev)
-    scale = hd ** -0.5
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    live_rows = int((lengths_np.astype(np.int64) + 1).sum())
-    live_blocks = int((lengths_np // bs + 1).sum())
     results = {}
     for dt in (torch.float32, torch.bfloat16):
-        kp, vp = kp32.to(dt), vp32.to(dt)
-
-        def kern(kp=kp, vp=vp):
-            return PA.paged_decode_attention(
-                q, kp, vp, tables, lengths, block_size=bs, scale=scale)
-
-        def plain(kp=kp, vp=vp):
-            return PA.paged_decode_attention_plain(
-                q, kp, vp, tables, lengths, block_size=bs, scale=scale)
-
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or err > ATOL[dt]:
-            raise AssertionError(
-                f"paged kernel vs plain ({dt}): max |err| {err} > {ATOL[dt]}")
-        # one-call yardstick: SDPA over the image gathered beforehand
-        rows = PA.image_rows(tables, bs)
-        k_img = kp[rows].permute(0, 2, 1, 3).contiguous()  # (S, H, T, hd)
-        v_img = vp[rows].permute(0, 2, 1, 3).contiguous()
-        q_l = q.to(dt)[:, :, None, :]
-        mask = (torch.arange(nt * bs, device=dev)[None, :]
-                <= lengths.long()[:, None])[:, None, None, :]
-
-        def library(k_img=k_img, v_img=v_img, q_l=q_l):
-            return F.scaled_dot_product_attention(
-                q_l, k_img, v_img, attn_mask=mask, scale=scale)
-
-        lib_err = float((library()[:, :, 0].float() - want).abs().max())
-        esize = kp.element_size()
-        nbytes = (2 * live_rows * h * hd * esize + 2 * s_ * h * hd * 4
-                  + live_blocks * 4 + s_ * 4)
-        flops = 4 * live_rows * h * hd
-        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
-        res = dict(
-            max_abs_err=err,
-            ms=_time_ms(kern, flush),
-            plain_ms=_time_ms(plain, flush),
-            library_ms=_time_ms(library, flush),
-            bound_ms=bound_s * 1e3,
-            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= flops / FP32_FLOP_PER_S else "operations"),
-            bytes=nbytes, library_max_abs_err=lib_err,
-        )
-        print(f"paged_decode_attention {str(dt).replace('torch.', '')}: "
-              f"max|err| {err:.3e} (atol {ATOL[dt]}), kernel "
-              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
-              f"{res['library_ms']:.4f} ms (max|err| {lib_err:.3e}), bound "
-              f"{res['bound_ms']:.4f} ms ({nbytes} B, Σ(len+1)={live_rows})")
-        results[dt] = res
-    results[torch.int8] = _kernel_i8(dev, q, tables_np, lengths_np, flush,
-                                     rng)
+        results[dt] = _paged_measure("kernel shape", q, (kp32.to(dt),
+                                     vp32.to(dt)), tables, lengths_np, bs,
+                                     flush, "bulk")
+    # int8: a pool of I8_BLOCKS blocks (the fp32 pool's bytes), tables
+    # drawn from it, the same lengths
+    pools8 = _pools(torch.int8, rng, I8_BLOCKS * bs, h, hd, dev)
+    tables8 = torch.from_numpy(np.stack([
+        rng.choice(I8_BLOCKS - 1, nt, replace=False) + 1 for _ in range(s_)
+    ]).astype(np.int32)).to(dev)
+    results[torch.int8] = dict(_paged_measure(
+        "kernel shape", q, pools8, tables8, lengths_np, bs, flush, "bulk"),
+        n_blocks=I8_BLOCKS)
+    # the serve run's shape
+    live = [len(p) + KA.SERVE_AT for p in KA.serve_prompts()]
+    srng = np.random.RandomState(SEED + 7)
+    serve_len = np.zeros(s_, np.int32)
+    serve_len[:len(live)] = live
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        blocks = I8_BLOCKS if dt == torch.int8 else n_blocks
+        pools = _pools(dt, srng, blocks * bs, h, hd, dev)
+        st = torch.from_numpy(KA.paged_tables(serve_len, blocks, srng)).to(
+            dev)
+        results[dt]["serve_shape"] = _paged_measure(
+            "serve shape", q, pools, st, serve_len, bs, flush, "bulk")
+    results["edges"] = _paged_edges(dev)
     return results
 
 
-def _kernel_i8(dev, q, tables_np, lengths_np, flush, rng) -> dict:
-    """The int8 kernel against its plain version at the serving shapes,
-    over an int8 pool of I8_BLOCKS blocks (the fp32 pool's bytes):
-    seeded rows quantized by ``quantize_rows``, the fp32 instance's
-    lengths (boundary cases included), tables drawn from the larger
-    pool."""
-    s_, h, hd = q.shape
-    bs, nt = 32, tables_np.shape[1]
-    rows_n = I8_BLOCKS * bs
-    kq, ks = Q.quantize_rows(torch.from_numpy(
-        rng.randn(rows_n, h, hd).astype(np.float32)).to(dev))
-    vq, vs = Q.quantize_rows(torch.from_numpy(
-        rng.randn(rows_n, h, hd).astype(np.float32)).to(dev))
-    tables_np = np.stack([
-        rng.choice(I8_BLOCKS - 1, nt, replace=False) + 1 for _ in range(s_)
-    ]).astype(np.int32)
-    tables = torch.from_numpy(tables_np).to(dev)
-    lengths = torch.from_numpy(lengths_np).to(dev)
-    scale = hd ** -0.5
-
-    def kern():
-        return PA.paged_decode_attention(
-            q, kq, vq, tables, lengths, block_size=bs, scale=scale,
-            k_scale=ks, v_scale=vs)
-
-    def plain():
-        return PA.paged_decode_attention_i8_plain(
-            q, kq, vq, ks, vs, tables, lengths, block_size=bs, scale=scale)
-
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.isfinite(got).all() or err > ATOL[torch.int8]:
-        raise AssertionError(
-            f"paged int8 kernel vs plain: max |err| {err} > "
-            f"{ATOL[torch.int8]}")
-    _kernel_i8_edges(dev, q, kq, vq, ks, vs, tables, lengths, bs, scale)
-    # no one PyTorch call attends int8 rows with per-(row, head) scales;
-    # beside it, SDPA over the image dequantized beforehand (not the same
-    # function: it reads 4 bytes per element where the kernel reads 1)
-    rows = PA.image_rows(tables, bs)
-    k_img = (kq[rows].float() * ks[rows][..., None]).permute(0, 2, 1, 3)
-    v_img = (vq[rows].float() * vs[rows][..., None]).permute(0, 2, 1, 3)
-    k_img, v_img = k_img.contiguous(), v_img.contiguous()
-    mask = (torch.arange(nt * bs, device=dev)[None, :]
-            <= lengths.long()[:, None])[:, None, None, :]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            q[:, :, None, :], k_img, v_img, attn_mask=mask, scale=scale)
-
-    sdpa_err = float((sdpa()[:, :, 0] - want).abs().max())
-    live_rows = int((lengths_np.astype(np.int64) + 1).sum())
-    live_blocks = int((lengths_np // bs + 1).sum())
-    # each live (row, head): hd int8 values and one fp32 scale, K and V
-    nbytes = (2 * live_rows * h * (hd + 4) + 2 * s_ * h * hd * 4
-              + live_blocks * 4 + s_ * 4)
-    ops = 6 * live_rows * h * hd  # dequantize K and V, q·k, p·v
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
-    res = dict(
-        max_abs_err=err, ms=_time_ms(kern, flush),
-        plain_ms=_time_ms(plain, flush), library_ms=None,
-        sdpa_dequantized_image_ms=_time_ms(sdpa, flush),
-        sdpa_max_abs_err=sdpa_err, bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=nbytes, n_blocks=I8_BLOCKS,
-    )
-    print(f"paged_decode_attention_i8: max|err| {err:.3e} (atol "
-          f"{ATOL[torch.int8]}), kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, sdpa on the dequantized image (not the "
-          f"same function) {res['sdpa_dequantized_image_ms']:.4f} ms "
-          f"(max|err| {sdpa_err:.3e}), bound {res['bound_ms']:.4f} ms "
-          f"({nbytes} B, {I8_BLOCKS} blocks, Σ(len+1)={live_rows})")
-    return res
-
-
-def _kernel_i8_edges(dev, q, kq, vq, ks, vs, tables, lengths, bs,
-                     scale) -> None:
-    """The int8 kernel's other paths against its plain version: a K pool
-    that starts on an odd byte (byte loads in place of ``char2``), an
-    odd head_dim (37) and the widest (128), atol 1e-5."""
-    flat = torch.empty(kq.numel() + 1, dtype=torch.int8, device=dev)
-    k_odd = flat[1:].view(kq.shape)
-    k_odd.copy_(kq)
-    cases = [("odd-aligned K pool", (q, k_odd, vq, ks, vs, tables, lengths,
-                                     bs))]
+def _paged_edges(dev) -> dict:
+    """The paged kernel's edge cases against its plain version at ATOL,
+    fp32, bf16 and int8, with the instance each runs asserted: lengths
+    0, bs - 1, bs, a full table and both sides of a split boundary
+    (bulk); head_dim 128 (bulk) and 37 (general); an int8 K pool that
+    starts on an odd byte (general)."""
     rng = np.random.RandomState(SEED + 3)
-    for s_, h, hd, bs_e, nb, nt in ((5, 3, 37, 4, 20, 6),
-                                    (4, 2, 128, 16, 30, 8)):
-        pools = [Q.quantize_rows(torch.from_numpy(
-            rng.randn(nb * bs_e, h, hd).astype(np.float32)).to(dev))
-            for _ in range(2)]
-        ln = rng.randint(0, nt * bs_e, size=s_).astype(np.int32)
-        ln[:2] = [0, nt * bs_e - 1]
-        cases.append((f"hd {hd}", (
-            torch.from_numpy(rng.randn(s_, h, hd).astype(np.float32)).to(dev),
-            pools[0][0], pools[1][0], pools[0][1], pools[1][1],
-            torch.from_numpy(np.stack([
+    worst, n, seen = {}, 0, set()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        cases = []
+        for s_, h, hd, bs, nb, nt in ((32, 8, 64, 32, 257, 32),
+                                      (4, 2, 128, 16, 30, 8),
+                                      (6, 4, 128, 32, 60, 12),
+                                      (5, 3, 37, 4, 20, 6)):
+            plan = PA.paged_split_plan(s_, nt, bs, n_sm)
+            edge = plan.blocks_per_split * bs  # first row of split 1
+            ln = rng.randint(0, nt * bs, size=s_).astype(np.int32)
+            ln[:min(s_, 7)] = [0, bs - 1, bs, nt * bs - 1, edge - 1, edge,
+                               edge + 1][:min(s_, 7)]
+            ln = np.minimum(ln, nt * bs - 1)
+            q = torch.from_numpy(rng.randn(s_, h, hd).astype(np.float32)).to(
+                dev)
+            pools = _pools(dt, rng, nb * bs, h, hd, dev)
+            tables = torch.from_numpy(np.stack([
                 rng.choice(nb - 1, nt, replace=False) + 1 for _ in range(s_)
-            ]).astype(np.int32)).to(dev),
-            torch.from_numpy(ln).to(dev), bs_e)))
-    for name, (q_, k_, v_, ks_, vs_, t_, l_, bs_) in cases:
-        sc = scale if name.startswith("odd") else None
-        got = PA.paged_decode_attention(q_, k_, v_, t_, l_, block_size=bs_,
-                                        scale=sc, k_scale=ks_, v_scale=vs_)
-        want = PA.paged_decode_attention_i8_plain(
-            q_, k_, v_, ks_, vs_, t_, l_, block_size=bs_, scale=sc)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or err > ATOL[torch.int8]:
-            raise AssertionError(
-                f"paged int8 kernel vs plain ({name}): max |err| {err}")
-        print(f"paged_decode_attention_i8 {name}: max|err| {err:.3e}")
-
-
-class _Timeline:
-    """The scheduler's metrics hooks, recording host times."""
-
-    def __init__(self):
-        self.admitted_at, self.first_at, self.done_at = {}, {}, {}
-        self.engine_stats = None
-
-    def admitted(self, rid, prompt_len, t):
-        self.admitted_at[rid] = t
-
-    def first_token(self, rid, t):
-        self.first_at[rid] = t
-
-    def finished(self, rid, n_tokens, t):
-        self.done_at[rid] = t
-
-    def set_engine_stats(self, stats):
-        self.engine_stats = stats
+            ]).astype(np.int32)).to(dev)
+            want = "general" if hd % 2 else "bulk"
+            cases.append((f"H {h} hd {hd} bs {bs}", q, pools, tables, ln, bs,
+                          want))
+            if dt == torch.int8 and hd == 64:
+                flat = torch.empty(pools[0].numel() + 1, dtype=torch.int8,
+                                   device=dev)
+                k_odd = flat[1:].view(pools[0].shape)
+                k_odd.copy_(pools[0])
+                cases.append(("K pool on an odd byte", q,
+                              (k_odd,) + pools[1:], tables, ln, bs,
+                              "general"))
+        for name, q, pools, tables, ln, bs, want in cases:
+            inst = PA.paged_instance(dt, q.shape[1], q.shape[2], bs,
+                                     [t.data_ptr() for t in pools],
+                                     pools[0].shape[0])
+            if inst != want:
+                raise AssertionError(f"paged edge {name} ({dt}): instance "
+                                     f"{inst}, want {want}")
+            lengths = torch.from_numpy(ln).to(dev)
+            scales = (dict(k_scale=pools[2], v_scale=pools[3])
+                      if dt == torch.int8 else {})
+            got = _ran_instance(
+                f"paged edge {name}", lambda: PA.paged_decode_attention(
+                    q, pools[0], pools[1], tables, lengths, block_size=bs,
+                    **scales), dt, want)
+            want_out = (PA.paged_decode_attention_i8_plain(
+                q, *pools, tables, lengths, block_size=bs)
+                if dt == torch.int8 else PA.paged_decode_attention_plain(
+                    q, pools[0], pools[1], tables, lengths, block_size=bs))
+            torch.cuda.synchronize()
+            err = float((got - want_out).abs().max())
+            if not torch.isfinite(got).all() or err > ATOL[dt]:
+                raise AssertionError(f"paged edge {name} ({dt}): max |err| "
+                                     f"{err} > {ATOL[dt]}")
+            key = str(dt).replace("torch.", "")
+            worst[key] = max(worst.get(key, 0.0), err)
+            seen.add(inst)
+            n += 1
+    print(f"paged edges: {n} cases (lengths 0, bs - 1, bs, a full table, "
+          f"both sides of a split boundary; H 8 hd 64, H 2 and 4 hd 128, "
+          f"H 3 hd 37; an int8 K pool on an odd byte), instances "
+          f"{sorted(seen)}, max|err| {worst} within {ATOL}")
+    return dict(cases=n, max_abs_err=worst, instances=sorted(seen))
 
 
 def _oracle_check(model, dev, req) -> None:
@@ -597,16 +655,16 @@ class _Recorder(ContinuousBatchingScheduler):
 
 def _serve_run(engine, reqs, record: bool = False) -> dict:
     """Serve ``reqs`` through a fresh scheduler: every paged kernel's
-    count set to 0 just before, read just after; the device bytes the
-    scheduler's pool took."""
-    timeline = _Timeline()
+    count (and bulk-instance count) set to 0 just before, read just
+    after; the device bytes the scheduler's pool took."""
+    timeline = KA.ServeClock()
     on_card = engine.device.type == "cuda"
     mem0 = torch.cuda.memory_allocated() if on_card else 0
     sched = (_Recorder if record else ContinuousBatchingScheduler)(
         engine, metrics=timeline)
     pool_bytes = torch.cuda.memory_allocated() - mem0 if on_card else None
-    PA.paged_decode_attention.launches = 0
-    PA.paged_decode_attention_i8.launches = 0
+    for w in (PA.paged_decode_attention, PA.paged_decode_attention_i8):
+        w.launches = w.bulk_launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
@@ -616,6 +674,8 @@ def _serve_run(engine, reqs, record: bool = False) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(fp32=PA.paged_decode_attention.launches,
                     int8=PA.paged_decode_attention_i8.launches)
+    bulk = dict(fp32=PA.paged_decode_attention.bulk_launches,
+                int8=PA.paged_decode_attention_i8.bulk_launches)
     vocab = engine.vocab_size
     for r in reqs:
         if len(r.output) != r.max_new_tokens or not all(
@@ -624,30 +684,31 @@ def _serve_run(engine, reqs, record: bool = False) -> dict:
     n_tok = sum(len(r.output) for r in reqs)
     ttft = [timeline.first_at[r.id] - timeline.admitted_at[r.id]
             for r in reqs]
-    tick_ms = [1e3 * (timeline.done_at[r.id] - timeline.first_at[r.id])
-               / max(len(r.output) - 1, 1) for r in reqs]
     return dict(
-        sched=sched, launches=launches, pool_bytes=pool_bytes,
+        sched=sched, launches=launches, bulk_launches=bulk,
+        pool_bytes=pool_bytes,
         summary=dict(
             tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
             ttft_ms_median=1e3 * float(np.median(ttft)),
             ttft_ms_max=1e3 * float(np.max(ttft)),
-            decode_tick_ms_median=float(np.median(tick_ms)),
+            decode_tick_ms_median=timeline.decode_tick_ms(reqs),
             decode_ticks=sched.stats["decode_ticks"],
         ),
     )
 
 
 def _want_paged_launches(run, key: str, engine) -> int:
-    """The paged kernel ``key`` launched n_layers × decode ticks times
-    and the other paged kernel never."""
+    """The paged kernel ``key`` launched n_layers × decode ticks times,
+    each on the bulk instance, and the other paged kernel never."""
     ticks = run["sched"].stats["decode_ticks"]
     want = {k: 0 for k in run["launches"]}
     want[key] = engine.n_layers * ticks
-    if run["launches"] != want or want[key] == 0:
+    if (run["launches"] != want or run["bulk_launches"] != want
+            or want[key] == 0):
         raise AssertionError(
-            f"paged kernel launches {run['launches']} over the run; want "
-            f"{want} (n_layers × {ticks} decode ticks)")
+            f"paged kernel launches {run['launches']} over the run, "
+            f"{run['bulk_launches']} of them bulk; want {want}, all bulk "
+            f"(n_layers × {ticks} decode ticks)")
     return want[key]
 
 
@@ -691,23 +752,159 @@ def _same_tokens(what: str, a, b, reqs) -> int:
     return equal
 
 
+# the decode tick's device time by part (first match; kernels launched
+# inside the engine's KV write are the int8 pool's quantize-on-write)
+TICK_GEMM = ("gemm", "cublas", "cutlass", "xmma", "sm90_", "sm80_",
+             "ampere")
+
+
+def _tick_part(kernel_name: str, in_kv_write: bool) -> str:
+    low = kernel_name.lower()
+    if "paged_decode" in low:
+        return "paged attention (kernel)"
+    if in_kv_write:
+        return "KV write (int8: quantize on write)"
+    if any(k in low for k in TICK_GEMM):
+        return "GEMM (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset (tokens, tables, lengths)"
+    return "rest (embedding, LayerNorm, GELU, residuals, head)"
+
+
+def _covering(ranges, t) -> int:
+    """Index of the (start, end) range of the sorted ``ranges`` that holds
+    ``t``, else -1."""
+    i = bisect.bisect_right([a for a, _ in ranges], t) - 1
+    return i if i >= 0 and t <= ranges[i][1] else -1
+
+
+def _union_us(intervals) -> float:
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def phase_serve_profile(engine, label: str) -> dict:
+    """Device time of the decode tick by part, kernels per tick and the
+    device's idle share inside the ticks, from ``torch.profiler`` over a
+    serve run of the 8 requests (run after every counted serve run: the
+    profiler's CUDA tracing may slow the launches of what follows it).
+    While the profiler records, the engine opens ``record_function``
+    ranges (``serving.paging``'s TICK_RANGE, PREFILL_RANGE and
+    KV_WRITE_RANGE); a kernel belongs to the tick whose window holds its
+    start (a window runs from its tick's range start to the next tick's
+    or prefill's), and to the KV write part when the host op that
+    launched it ran inside a KV write range.  A tick spans from its
+    range's start to the end of its last kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tags = (TICK_RANGE, PREFILL_RANGE, KV_WRITE_RANGE)
+    reqs = KA.serve_requests()
+    sched = ContinuousBatchingScheduler(engine)
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.events()
+    ranges = {tag: sorted((e.time_range.start, e.time_range.end)
+                          for e in events if e.name == tag
+                          and e.device_type == DeviceType.CPU)
+              for tag in tags}
+    ticks = ranges[TICK_RANGE]
+    n = len(ticks)
+    # a tick's window runs from its range's start to the next tick's or
+    # prefill's start; the device's kernels that start in it are its own
+    starts = [a for tag in (TICK_RANGE, PREFILL_RANGE)
+              for a, _ in ranges[tag]]
+    tick_starts = [a for a, _ in ticks]
+    # device events, less the device-side copies of the ranges above
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in tags]
+    by_tick = [[] for _ in ticks]
+    for d in kernels:
+        i = bisect.bisect_right(tick_starts, d.time_range.start) - 1
+        if i >= 0 and d.time_range.start < min(
+                [t for t in starts if t > ticks[i][0]] + [float("inf")]):
+            by_tick[i].append(d)
+    parts, by_name = {}, {}
+    for d in (d for mine in by_tick for d in mine):
+        us = d.time_range.end - d.time_range.start
+        part = _tick_part(d.name, False)
+        parts[part] = parts.get(part, 0.0) + us
+        by_name[d.name] = by_name.get(d.name, 0.0) + us
+    # the KV write's kernels: those its host ops launched (int8: the
+    # quantization on write), moved out of the part their names gave
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.kernels
+                and _covering(ticks, e.time_range.start) >= 0
+                and _covering(ranges[KV_WRITE_RANGE], e.time_range.start)
+                >= 0):
+            for k in e.kernels:
+                part = _tick_part(k.name, False)
+                parts[part] = parts.get(part, 0.0) - k.duration
+                write = _tick_part(k.name, True)
+                parts[write] = parts.get(write, 0.0) + k.duration
+    spans = [max([ticks[i][1]] + [d.time_range.end for d in by_tick[i]])
+             - ticks[i][0] for i in range(n)]
+    busy = sum(_union_us([(d.time_range.start, d.time_range.end)
+                          for d in by_tick[i]]) for i in range(n))
+    n_kernels = sum(len(mine) for mine in by_tick)
+    all_kernels = [(d.time_range.start, d.time_range.end) for d in kernels]
+    out = dict(
+        label=label, decode_ticks=n, wall_ms=wall_us / 1e3,
+        kernel_ms_per_tick={k: v / max(n, 1) / 1e3
+                            for k, v in sorted(parts.items())},
+        kernels_per_tick=n_kernels / max(n, 1),
+        tick_span_ms_median=float(np.median(spans)) / 1e3 if n else None,
+        device_busy_ms_per_tick=busy / max(n, 1) / 1e3,
+        tick_idle_share=(1.0 - busy / sum(spans)) if n_kernels else None,
+        run_idle_share=(1.0 - _union_us(all_kernels) / wall_us)
+        if all_kernels else None,
+        top_kernels_ms_per_tick={
+            k[:80]: v / max(n, 1) / 1e3 for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]},
+    )
+    if not n_kernels:
+        print(f"decode-tick profile {label}: torch.profiler recorded no "
+              f"device kernels in the ticks (not measured)")
+        return out
+    print(f"decode-tick profile {label} ({n} decode ticks of "
+          f"{len(reqs)} requests, under the profiler): tick span median "
+          f"{out['tick_span_ms_median']:.3f} ms, device busy "
+          f"{out['device_busy_ms_per_tick']:.4f} ms a tick (idle share "
+          f"{out['tick_idle_share']:.3f} inside the ticks, "
+          f"{out['run_idle_share']:.3f} over the run), "
+          f"{out['kernels_per_tick']:.1f} kernels a tick")
+    for part, ms in out["kernel_ms_per_tick"].items():
+        print(f"  {part}: {ms:.4f} ms a tick")
+    for name, ms in out["top_kernels_ms_per_tick"].items():
+        print(f"  kernel {name}: {ms:.4f} ms a tick")
+    return out
+
+
 def phase_serve(dev: torch.device):
     """The fp32 pool's run; returns its numbers and what the int8 and
     sampled runs reuse (the model, the engine, the prompts, the tokens)."""
     model = TransformerLM(SERVE_CFG, seed=SEED, device=dev)
     engine = PagedServingEngine(model, device=dev, **SERVE_ENGINE)
-    rng = np.random.RandomState(SEED + 1)
-    vocab = SERVE_CFG["vocab_size"]
-    prompts = [
-        rng.randint(0, vocab, size=rng.randint(PROMPT_LO, PROMPT_HI + 1))
-        .tolist() for _ in range(N_REQUESTS)
-    ]
+    prompts = KA.serve_prompts()
     # warm-up (cuBLAS handles, allocator), outside the counted run
     engine.greedy(prompts[0][:PROMPT_LO], 2)
     torch.cuda.synchronize()
 
-    reqs = [Request(id=f"r{i}", prompt=p, max_new_tokens=NEW_TOKENS)
-            for i, p in enumerate(prompts)]
+    reqs = KA.serve_requests()
     run = _serve_run(engine, reqs)
     launches = _want_paged_launches(run, "fp32", engine)
     for r in reqs:
@@ -719,8 +916,8 @@ def phase_serve(dev: torch.device):
           f"median {out['ttft_ms_median']:.2f} ms, max "
           f"{out['ttft_ms_max']:.2f} ms; decode tick "
           f"{out['decode_tick_ms_median']:.3f} ms; {out['decode_ticks']} "
-          f"decode ticks, {launches} kernel launches; all requests match the "
-          f"full-recompute oracle")
+          f"decode ticks, {launches} kernel launches (all bulk); all "
+          f"requests match the full-recompute oracle")
     print(f"serve stats: {json.dumps(out['stats'], sort_keys=True)}")
     cpu_model = TransformerLM(SERVE_CFG, seed=SEED, device="cpu")
     cpu_model.load_state_dict({k: v.cpu()
@@ -748,12 +945,9 @@ def phase_serve_int8(dev: torch.device, ctx) -> dict:
     capacity = engine.blocks_at_budget(budget) / fp32.blocks_at_budget(budget)
     engine.greedy(ctx["prompts"][0][:PROMPT_LO], 2)  # warm-up
     torch.cuda.synchronize()
+    ctx["engine_i8"] = engine
 
-    def requests():
-        return [Request(id=f"r{i}", prompt=p, max_new_tokens=NEW_TOKENS)
-                for i, p in enumerate(ctx["prompts"])]
-
-    reqs = requests()
+    reqs = KA.serve_requests()
     run = _serve_run(engine, reqs, record=True)
     launches = _want_paged_launches(run, "int8", engine)
     want_bytes = engine.n_blocks * engine.kv_block_bytes()
@@ -764,7 +958,7 @@ def phase_serve_int8(dev: torch.device, ctx) -> dict:
     cpu_engine = PagedServingEngine(ctx["cpu_model"], device="cpu",
                                     kv_dtype="int8", **geom)
     t0 = time.perf_counter()
-    cpu_run = _serve_run(cpu_engine, requests(), record=True)
+    cpu_run = _serve_run(cpu_engine, KA.serve_requests(), record=True)
     cpu_s = time.perf_counter() - t0
     equal = _same_tokens("int8 card vs cpu", run["sched"], cpu_run["sched"],
                          reqs)
@@ -786,7 +980,8 @@ def phase_serve_int8(dev: torch.device, ctx) -> dict:
           f"{out['wall_s']:.3f} s = {out['tokens_per_s']:.1f} tokens/s; TTFT "
           f"median {out['ttft_ms_median']:.2f} ms; decode tick "
           f"{out['decode_tick_ms_median']:.3f} ms; {out['decode_ticks']} "
-          f"decode ticks, {launches} int8 kernel launches, 0 fp32; "
+          f"decode ticks, {launches} int8 kernel launches (all bulk), 0 "
+          f"fp32; "
           f"{equal}/{N_REQUESTS} requests equal to the CPU int8 engine's "
           f"({cpu_s:.1f} s on the CPU)")
     print(f"kv_quant: capacity ratio {capacity:.4f} ({I8_BLOCKS} int8 blocks "
@@ -795,6 +990,13 @@ def phase_serve_int8(dev: torch.device, ctx) -> dict:
           f"{run['pool_bytes']} B, n_blocks × kv_block_bytes {want_bytes} B "
           f"(fp32 pool {out['fp32_pool_bytes']} B)")
     return out
+
+
+def phase_serve_profiles(ctx) -> dict:
+    """The decode-tick profiles of the fp32 and int8 pools, after every
+    counted serve run."""
+    return {label: phase_serve_profile(ctx[key], f"{label} pool")
+            for label, key in (("fp32", "engine"), ("int8", "engine_i8"))}
 
 
 def phase_serve_sampled(dev: torch.device, ctx) -> dict:
@@ -1336,22 +1538,40 @@ def phase_flash_edges(dev: torch.device) -> dict:
           f"aligned and q off 16 B; instances {sorted(seen)}) within "
           f"{FLASH_TOL[dt]} / lse {LSE_TOL}, max|err| fwd {worst:.3e}, "
           f"bwd {worst_bwd:.3e}")
-    n_many = 0
+    n_many, worst_fwd_many = 0, 0.0
     for bh_, t, d in FLASH_BWD_MANY:
         q, k, v, do = (torch.from_numpy(rng.randn(bh_, t, d).astype(
             np.float32)).to(dev).to(dt) for _ in range(4))
         scale = FL.resolve_scale(None, d)
         for causal in (False, True):
+            what = f"B.H {bh_} T {t} D {d} causal {causal}"
             out_p, lse_p = FL.flash_fwd_plain(q, k, v, causal, scale)
+            # the forward too (its P split truncates where the backward's
+            # rounds), at the shapes where a truncating split once left
+            # the backward outside one bf16 step
+            out_k, lse_k = FL.flash_fwd(q, k, v, causal, scale)
+            inst = FL.flash_fwd_instance(
+                dt, d, [a.data_ptr() for a in (q, k, v, out_k)])
+            if inst != "wgmma":
+                raise AssertionError(f"flash_fwd {what}: instance {inst}, "
+                                     f"want wgmma")
+            worst_fwd_many = max(
+                worst_fwd_many,
+                _check_close(f"flash_fwd {what} out", out_k, out_p, dt,
+                             FLASH_TOL[dt]),
+                _check_close(f"flash_fwd {what} lse", lse_k, lse_p, dt,
+                             LSE_TOL))
             delta = (do.float() * out_p.float()).sum(dim=-1)
             worst_bwd = max(worst_bwd, _flash_bwd_edge(
-                f"B.H {bh_} T {t} D {d} causal {causal}",
-                (q, k, v, do, lse_p, delta, causal, scale), "wgmma", dt))
+                what, (q, k, v, do, lse_p, delta, causal, scale), "wgmma",
+                dt))
             n_many += 1
-    print(f"flash_dq / flash_dkv at {FLASH_BWD_MANY} (B.H, T, D), causal "
-          f"and full: {n_many} cases, instance wgmma, within "
-          f"{FLASH_TOL[dt]}; max|err| bwd over all edges {worst_bwd:.3e}")
+    print(f"flash_fwd, flash_dq, flash_dkv at {FLASH_BWD_MANY} (B.H, T, D), "
+          f"causal and full: {n_many} cases each, instance wgmma, within "
+          f"{FLASH_TOL[dt]} / lse {LSE_TOL}; max|err| fwd there "
+          f"{worst_fwd_many:.3e}, bwd over all edges {worst_bwd:.3e}")
     return dict(cases=n, bwd_many_cases=n_many, max_abs_err=worst,
+                fwd_many_max_abs_err=worst_fwd_many,
                 bwd_max_abs_err=worst_bwd, instances=sorted(seen))
 
 
@@ -1955,6 +2175,9 @@ def main() -> int:
     serve, serve_ctx = phase_serve(dev)
     serve_i8 = phase_serve_int8(dev, serve_ctx)
     serve_sampled = phase_serve_sampled(dev, serve_ctx)
+    profiles = phase_serve_profiles(serve_ctx)
+    serve["tick_profile"], serve_i8["tick_profile"] = (profiles["fp32"],
+                                                       profiles["int8"])
     del serve_ctx
     train = phase_train(dev)
     oracle = phase_train_oracle(dev)
@@ -2027,12 +2250,11 @@ def main() -> int:
     print(json.dumps({
         "serve": {k: v for k, v in serve.items() if k != "stats"},
         "serve_int8": serve_i8, "serve_sampled": serve_sampled,
-        "paged_decode_attention_bf16": {
-            k: v for k, v in kern[torch.bfloat16].items() if k != "bytes"
-        },
-        "paged_decode_attention_i8": {
-            k: v for k, v in kern[torch.int8].items() if k != "bytes"
-        },
+        **{f"paged_decode_attention_{name}": {
+            k: v for k, v in kern[dt].items() if k != "bytes"
+        } for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                           ("i8", torch.int8))},
+        "paged_edges": kern["edges"],
         "train": train, "train_oracle": oracle,
         "train_kernels": [dict(r, shape=list(r["shape"])) for r in train_rows],
         "lm_train": lm, "lm_oracle": lm_oracle,

@@ -20,23 +20,37 @@
   the alignment of each row operand; each item exactly once, longest
   first; the CTAs within one item's work of each other at the LM's
   shape.
+- ``ops.paged_attention.paged_split_plan``, ``paged_instance`` and
+  ``paged_decode_split_plain``: the paged decode kernel's bulk instance
+  splits each lane's table across CTAs; every live block lies in
+  exactly one split, a split past the lane's length reads nothing, and
+  full tables give the card at least two CTAs an SM.  The instance goes
+  by dtype, head_dim, heads, 16-byte alignment and (int8) scale planes
+  that end on 16 bytes; every layer of an engine's pool takes layer 0's
+  instance.  The plain mirror of
+  the split and combine equals the plain versions (fp32 and int8) at
+  every split size, with length-0 lanes, lanes whose only live split is
+  the first, and tables not a multiple of the split.
 
-Small sizes; torch capped at two threads, as the other port tests."""
+Small sizes; torch capped at one thread."""
 
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
 from theanompi_tpu_torch.ops import flash as FL
+from theanompi_tpu_torch.ops import paged_attention as PA
 from theanompi_tpu_torch.ops import pool as PO
+from theanompi_tpu_torch.parallel.quantize import quantize_rows
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     """Leave the CPU to the other test workers."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -242,3 +256,152 @@ def test_flash_bwd_schedule_balances_the_lm_shape(kernel):
     assert heaviest == 16
     assert max(loads) - min(loads) <= heaviest
     assert max(loads) <= 36
+
+
+# (lanes, table entries, block size, SMs)
+PAGED_PLANS = [(32, 32, 32, 132), (32, 4, 32, 132), (8, 40, 16, 132),
+               (3, 9, 4, 2), (1, 1, 32, 132), (64, 64, 32, 114)]
+
+
+@pytest.mark.parametrize("n_lanes,n_table,bs,n_sm", PAGED_PLANS)
+def test_paged_split_plan_covers_each_live_block_once(n_lanes, n_table, bs,
+                                                      n_sm):
+    plan = PA.paged_split_plan(n_lanes, n_table, bs, n_sm)
+    assert plan.n_splits * plan.blocks_per_split >= n_table
+    assert (plan.n_splits - 1) * plan.blocks_per_split < n_table
+    for length in range(n_table * bs):
+        n_live = length // bs + 1
+        seen = [j for i in range(plan.n_splits)
+                for j in plan.blocks(i, length, bs, n_table)]
+        assert seen == list(range(n_live))  # once each, in order
+        for i in range(plan.n_splits):
+            if i * plan.blocks_per_split >= n_live:  # past the length
+                assert len(plan.blocks(i, length, bs, n_table)) == 0
+
+
+def test_paged_split_plan_fills_the_card_at_full_tables():
+    """32 lanes of 32 full blocks on an H100's 132 SMs: at least about
+    two CTAs an SM; short tables take one block a split."""
+    plan = PA.paged_split_plan(32, 32, 32, 132)
+    assert 32 * plan.n_splits >= 1.9 * 132
+    assert PA.paged_split_plan(32, 4, 32, 132).blocks_per_split == 1
+    # tiny blocks: a split still holds PAGED_MIN_SPLIT_ROWS rows
+    assert PA.paged_split_plan(4, 16, 4, 132).blocks_per_split == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_paged_stage_plan_fits_the_shared_memory(dtype):
+    """Wherever the bulk instance runs (fp32 16 x 128 does not)."""
+    for h, hd, bs, bps in ((8, 64, 32, 4), (2, 128, 16, 1), (16, 128, 32, 8),
+                           (1, 64, 4, 8), (16, 64, 32, 1024)):
+        if PA.paged_instance(dtype, h, hd, bs, [0] * 4, 64) != "bulk":
+            assert (dtype, h, hd) == (torch.float32, 16, 128)
+            continue
+        rows, stages, smem = PA.paged_stage_plan(dtype, h, hd, bs, bps)
+        assert rows in PA.BULK_ROWS and 2 <= stages <= PA.BULK_MAX_STAGES
+        assert smem <= PA.BULK_SMEM_MAX
+        esize = torch.empty((), dtype=dtype).element_size()
+        assert smem == PA.bulk_smem_bytes(esize, rows, h, hd, stages, bps)
+
+
+def test_paged_instance_by_dtype_head_dim_and_alignment():
+    f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
+    aligned = [0, 256, 512, 768]
+    for dt in (f32, bf, i8):
+        assert PA.paged_instance(dt, 8, 64, 32, aligned, 64) == "bulk"
+        assert PA.paged_instance(dt, 2, 128, 16, aligned, 64) == "bulk"
+        assert PA.paged_instance(dt, 3, 37, 4, aligned, 64) == "general"
+        for off in range(4):  # any pool or scale base off 16 bytes
+            ptrs = list(aligned)
+            ptrs[off] += 1 if dt == i8 else 4
+            assert PA.paged_instance(dt, 8, 64, 32, ptrs, 64) == "general"
+    # a row that is not a multiple of 16 bytes
+    assert PA.paged_instance(i8, 1, 8, 32, aligned, 64) == "general"
+    assert PA.paged_instance(bf, 1, 8, 32, aligned, 64) == "bulk"
+    # head_dim past the kernels' layout; heads past one warp each
+    assert PA.paged_instance(f32, 8, 130, 32, aligned, 64) == "general"
+    assert PA.paged_instance(f32, 17, 64, 32, aligned, 64) == "general"
+    # two 8-row stages of 16 fp32 heads of 128 exceed shared memory
+    assert PA.paged_instance(f32, 16, 128, 32, aligned, 64) == "general"
+    assert PA.paged_instance(bf, 16, 128, 32, aligned, 64) == "bulk"
+
+
+def test_paged_instance_needs_int8_scale_planes_that_end_on_16_bytes():
+    """A chunk's scales are copied in 16-byte units from the boundary
+    below them: an int8 plane of R·H floats not a multiple of 16 bytes
+    would be read past its end by the copy of its last rows."""
+    i8, aligned = torch.int8, [0, 256, 512, 768]
+    assert PA.paged_instance(i8, 1, 16, 4, aligned, 4) == "bulk"
+    assert PA.paged_instance(i8, 2, 16, 4, aligned, 2) == "bulk"
+    for rows, heads in ((3, 1), (5, 1), (6, 1), (3, 2), (1, 3)):
+        assert PA.paged_instance(i8, heads, 16, 4, aligned, rows) \
+            == "general"
+    # fp32 and bf16 pools have no scale plane: any row count
+    for dt in (torch.float32, torch.bfloat16):
+        assert PA.paged_instance(dt, 1, 16, 4, aligned[:2], 3) == "bulk"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_paged_instance_is_the_same_for_every_layer_of_a_pool(dtype):
+    """The engine passes per-layer slices of (layers, R, H, hd) pools and
+    (layers, R, H) scale planes: layer i starts i·R·H·hd·esize (scales
+    i·R·H·4) bytes past layer 0, so every layer runs layer 0's instance,
+    and a bulk layer 0 means every slice is on 16 bytes."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    n_pools = 4 if dtype == torch.int8 else 2
+    for heads, hd, rows in ((8, 64, 257 * 32), (1, 16, 3), (2, 16, 6),
+                            (3, 16, 8), (1, 8, 5), (8, 64, 967 * 32)):
+        first = PA.paged_instance(dtype, heads, hd, 4, [0] * n_pools, rows)
+        for layer in range(1, 4):
+            kv = layer * rows * heads * hd * esize
+            sc = layer * rows * heads * 4
+            ptrs = [kv, 2 ** 30 + kv, 2 ** 31 + sc, 2 ** 32 + sc][:n_pools]
+            assert PA.paged_instance(dtype, heads, hd, 4, ptrs, rows) \
+                == first
+            if first == "bulk":
+                assert all(p % 16 == 0 for p in ptrs)
+
+
+S_, H_, HD_, BS_, NB_, NT_ = 6, 3, 8, 4, 40, 7
+# length 0; the last row of the first block; the first split only at
+# every split size (3); the whole table; two ragged middles
+SPLIT_LENGTHS = [0, 3, 2, 27, 13, 17]
+
+
+def _split_inputs():
+    rng = np.random.RandomState(11)
+    q = torch.from_numpy(rng.randn(S_, H_, HD_).astype(np.float32))
+    kp = torch.from_numpy(rng.randn(NB_ * BS_, H_, HD_).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(NB_ * BS_, H_, HD_).astype(np.float32))
+    tables = torch.from_numpy(np.stack([
+        rng.choice(NB_ - 1, NT_, replace=False) + 1 for _ in range(S_)
+    ]).astype(np.int32))
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32)
+    return q, kp, vp, tables, lengths
+
+
+@pytest.mark.parametrize("bps", range(1, NT_ + 1))
+@pytest.mark.parametrize("pool", ["float32", "int8"])
+def test_paged_split_plain_matches_the_plain_versions(pool, bps):
+    """fp32 atol 1e-6: the same fp32 arithmetic in another order (and,
+    int8, the scales applied to the dot and the weight instead of to
+    each element)."""
+    q, kp, vp, tables, lengths = _split_inputs()
+    if pool == "int8":
+        (kq, ks), (vq, vs) = quantize_rows(kp), quantize_rows(vp)
+        want = PA.paged_decode_attention_i8_plain(
+            q, kq, vq, ks, vs, tables, lengths, block_size=BS_)
+        got = PA.paged_decode_split_plain(
+            q, kq, vq, tables, lengths, block_size=BS_, blocks_per_split=bps,
+            k_scale=ks, v_scale=vs)
+    else:
+        want = PA.paged_decode_attention_plain(q, kp, vp, tables, lengths,
+                                               block_size=BS_)
+        got = PA.paged_decode_split_plain(q, kp, vp, tables, lengths,
+                                          block_size=BS_,
+                                          blocks_per_split=bps)
+    assert got.dtype == torch.float32 and got.shape == (S_, H_, HD_)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

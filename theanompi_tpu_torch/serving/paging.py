@@ -20,6 +20,11 @@ counterpart of ``theanompi_tpu.serving.paging``.
   decode tick's attention is ``ops.paged_attention``: the CUDA kernel
   on the card, its plain version on the CPU — the device decides.
 
+Profiling: while ``torch.profiler`` records, the decode tick, each
+prefill call and each KV write run inside ``record_function`` ranges
+named ``TICK_RANGE``, ``PREFILL_RANGE`` and ``KV_WRITE_RANGE``; outside
+a profile they cost one flag check.
+
 The pool holds the compute dtype (fp32 or bf16), or with
 ``kv_dtype='int8'`` int8 rows beside fp32 scale planes ``ks``/``vs``
 (one scale per pool row and head, ``parallel.quantize.quantize_rows``
@@ -37,12 +42,15 @@ prefix hit changes which physical rows are read, never their values.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from torch.profiler import record_function
 
 from theanompi_tpu_torch.device import DeviceLike
 from theanompi_tpu_torch.ops.attention import local_attention
@@ -57,6 +65,23 @@ TRASH_BLOCK = 0  # reserved physical block: masked/inactive writes land here
 KV_DTYPES = ("fp32", "int8")
 
 _LATER_SLICE = "is a later slice of the PyTorch port"
+TICK_RANGE = "serve.decode_tick"
+PREFILL_RANGE = "serve.prefill"
+KV_WRITE_RANGE = "serve.kv_write"
+
+
+def _ranged(name: str):
+    """Run the method inside a ``record_function`` range ``name`` while
+    a profiler records; call it directly otherwise."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 class BlockPool:
@@ -327,6 +352,7 @@ class PagedServingEngine(ServingEngine):
     # ------------------------------------------------------------------
     # pool rows
     # ------------------------------------------------------------------
+    @_ranged(KV_WRITE_RANGE)
     def _kv_write(self, state, key: str, layer: int, rows: torch.Tensor,
                   wr: torch.Tensor) -> None:
         """Write K or V ``rows`` (N, H, hd) into one layer's pool at row
@@ -354,6 +380,7 @@ class PagedServingEngine(ServingEngine):
     # ------------------------------------------------------------------
     # host entries (state is written in place)
     # ------------------------------------------------------------------
+    @_ranged(PREFILL_RANGE)
     @torch.no_grad()
     def prefill_chunks(self, state: Dict[str, torch.Tensor],
                        rows: List[Dict]) -> torch.Tensor:
@@ -420,6 +447,7 @@ class PagedServingEngine(ServingEngine):
             f"verify_chunks (speculative decoding) {_LATER_SLICE}"
         )
 
+    @_ranged(TICK_RANGE)
     @torch.no_grad()
     def decode_step_paged(self, state: Dict[str, torch.Tensor], tokens,
                           tables, lengths, active) -> torch.Tensor:
