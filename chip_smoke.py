@@ -37,7 +37,12 @@ Phases, each of which raises on failure (nothing is caught):
    yardstick (``F.local_response_norm`` with α·size for the forward;
    aten's ``max_pool2d_with_indices_backward`` for the pool, which
    routes ties to one max and so is a yardstick of time only; none for
-   the LRN backward), beside the bound.  Then the max-pool backward's
+   the LRN backward), beside the bound; each LRN call's run width
+   asserted (16 bytes of channels a thread here).  Then the LRN
+   kernels' edge cases, fp32 and bf16, at KERNEL_TOL, each call's run
+   width asserted (``lrn_fwd.last_plan.vec``): C 1, 3, 13, 96, 256,
+   1024 and 4096 at sizes 3, 4, 5 and 7; C 96 with x off 16 bytes; one
+   row; one row past a tile of each pass.  Then the max-pool backward's
    edge cases (one launch a call, the 16-byte or the one-channel path):
    C 3, 13 and 96, windows 2/2, 3/2 and 3/1 on (2, 9, 11, C), fp32 and
    bf16, inputs drawn from four levels so that most windows tie, C 96
@@ -80,7 +85,8 @@ Phases, each of which raises on failure (nothing is caught):
    host time waiting on data, the run's wall time, and images/s and
    step time from ``utils.benchmark.images_per_sec`` (the step on
    pre-loaded batches), then the device time of the step by part
-   (conv/dense, LRN, pool backward, exchange, the rest) and the
+   (conv/dense, LRN, pool backward, exchange, the rest), the device
+   µs a launch of each of the port's kernels inside the step, and the
    device's idle share from ``torch.profiler`` over 10 more steps.
 7. train oracle — one fp32 step (batch 8, dropout 0, full width) of the
    port on the card and the same step of the port on the CPU (which
@@ -139,7 +145,8 @@ Phases, each of which raises on failure (nothing is caught):
    ``all_reduce`` mean.  Then two steps each of ``int8`` with error
    feedback and of ``fp16s`` (their launches checked the same way, the
    parameters still equal).  Prints step ms, the wire's share of the
-   step and peak memory per rank.
+   step and peak memory per rank, and rank 0's step profile with each
+   wire kernel's device µs a launch inside the step.
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
@@ -262,6 +269,13 @@ FLASH_EDGE_D = (16, 32, 40, 64, 36)
 # the wgmma backward with several items a CTA: the shapes at which a
 # truncating hi/lo split of P and dS left one element outside FLASH_TOL
 FLASH_BWD_MANY = ((200, 64, 64), (300, 256, 64))
+# the LRN kernels' edge cases: runs of one channel (C 1, 3, 13, and C 96
+# off 16 bytes) and of 16 bytes, the register windows (sizes 3, 4, 5:
+# even and odd) and the loop (7), rows past the old 768-channel cap, one
+# row, and one row past a tile
+LRN_EDGE_C = (1, 3, 13, 96, 256, 1024, 4096)
+LRN_EDGE_SIZES = (3, 4, 5, 7)
+LRN_EDGE_LEAD = {1024: (2, 3, 7), 4096: (2, 3, 7)}  # else (2, 9, 11)
 POOL_EDGE_C = (3, 13, 96)
 POOL_EDGE_WINDOWS = ((2, 2), (3, 2), (3, 1))
 POOL_EDGE_HW = (9, 11)
@@ -1078,6 +1092,78 @@ def _bound(nbytes: float, ops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _want_lrn_vec(name: str, vec: int, what: str) -> None:
+    """The run width of the last launch of ``LR.<name>``."""
+    plan = getattr(LR, name).last_plan
+    if plan is None or plan.vec != vec:
+        raise AssertionError(f"{name} at {what} ran {plan}, want vec {vec}")
+
+
+def _lrn_edge(dev, rng, shape, size, dt, shift=False,
+              names=("lrn_fwd", "lrn_bwd")) -> float:
+    """The named LRN kernels against their plain versions on one input
+    (x off 16 bytes with ``shift``), each call's run width asserted."""
+    x = _relu_input(rng, shape, dt, dev)
+    if shift:  # x at a storage offset of one element: off 16 bytes
+        x = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:].view(
+            shape).copy_(x)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    dy = dy.to(dt)
+    es, hyper = x.element_size(), dict(LRN_HYPER, size=size)
+    vec = 16 // es if shape[-1] * es % 16 == 0 and not shift else 1
+    calls = dict(
+        lrn_fwd=(lambda: LR.lrn_fwd(x, **hyper),
+                 lambda: LR.lrn_fwd_plain(x, **hyper)),
+        lrn_bwd=(lambda: LR.lrn_bwd(x, dy, **hyper),
+                 lambda: LR.lrn_bwd_plain(x, dy, **hyper)))
+    worst = 0.0
+    for name in names:
+        what = f"{tuple(shape)} size {size} {dt} shift {shift}"
+        kern, plain = calls[name]
+        worst = max(worst, _check_close(f"{name} edge {what}", kern(),
+                                        plain(), dt))
+        _want_lrn_vec(name, vec, what)
+    return worst
+
+
+def phase_lrn_edges(dev: torch.device) -> dict:
+    """Both LRN kernels against their plain versions, fp32 and bf16, at
+    KERNEL_TOL: C in LRN_EDGE_C at every size of LRN_EDGE_SIZES; C 96 with
+    x off 16 bytes; one row; one row past a tile of each pass."""
+    rng = np.random.RandomState(SEED + 8)
+    worst, n = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        for c in LRN_EDGE_C:
+            for size in LRN_EDGE_SIZES:
+                worst = max(worst, _lrn_edge(
+                    dev, rng, (*LRN_EDGE_LEAD.get(c, (2, 9, 11)), c), size,
+                    dt))
+                n += 2
+        for size in LRN_EDGE_SIZES:
+            worst = max(worst, _lrn_edge(dev, rng, (2, 9, 11, 96), size, dt,
+                                         shift=True))
+            n += 2
+        worst = max(worst, _lrn_edge(dev, rng, (1, 1, 1, 96), 5, dt))
+        n += 2
+        for c in (96, 256):
+            for name in ("lrn_fwd", "lrn_bwd"):
+                rows = LR.plan_lrn(10 ** 6, c, torch.finfo(dt).bits // 8,
+                                   True, name == "lrn_bwd").rows
+                worst = max(worst, _lrn_edge(dev, rng, (1, 1, rows + 1, c),
+                                             5, dt, names=(name,)))
+                if getattr(LR, name).last_plan.tiles != 2:
+                    raise AssertionError(
+                        f"{name}: {rows + 1} rows in "
+                        f"{getattr(LR, name).last_plan}, want 2 tiles")
+                n += 1
+    print(f"lrn edges: {n} calls (C {LRN_EDGE_C}, sizes {LRN_EDGE_SIZES}, "
+          f"C 96 off 16 B, one row, one row past a tile; fp32 and bf16; "
+          f"run width asserted per call) within KERNEL_TOL, max|err| "
+          f"{worst:.3e}; limit {LR.lrn_max_channels()} channels")
+    return dict(calls=n, max_abs_err=worst,
+                max_channels=LR.lrn_max_channels())
+
+
 def phase_train_kernels(dev: torch.device) -> list:
     """The three training kernels against their plain versions at the
     shapes AlexNet-128 gives them at batch 128, fp32 and bf16."""
@@ -1105,6 +1191,7 @@ def phase_train_kernels(dev: torch.device) -> list:
                 library=None, bytes=3 * n * es, ops=(2 * size + 16) * n)
             for name, d in (("lrn_fwd", fwd), ("lrn_bwd", bwd)):
                 err = _check_close(name, d["kern"](), d["plain"](), dt)
+                _want_lrn_vec(name, 16 // es, f"{shape} {dt}")
                 row = dict(name=name, shape=shape, dtype=str(dt)[6:],
                            max_abs_err=err)
                 if d["library"] is not None:
@@ -1228,7 +1315,7 @@ STEP_PARTS = (
                                            "dequant_int8_kernel",
                                            "dequant_fp16_kernel")),
     ("memcpy (host<->card; gloo stages the wire)", ("memcpy",)),
-    ("lrn (kernel)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
+    ("lrn (kernel)", ("lrn_fwd_staged", "lrn_bwd_staged")),
     ("pool bwd (kernel)", ("maxpool_bwd_kernel",)),
     ("exchange (nccl)", ("nccl",)),
     ("conv/dense (cuDNN/cuBLAS)", ("conv", "cudnn", "xmma", "gemm",
@@ -1269,12 +1356,13 @@ def phase_train_profile(model, label: str = "AlexNet-128") -> dict:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    parts, by_name = {}, {}
+    parts, by_name, count = {}, {}, {}
     intervals = []
     for e in kernels:
         us = e.device_time_total
         parts[_step_part(e.name)] = parts.get(_step_part(e.name), 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
+        count[e.name] = count.get(e.name, 0) + 1
         intervals.append((e.time_range.start, e.time_range.end))
     busy, end = 0.0, None
     for a, b in sorted(intervals):
@@ -1294,6 +1382,13 @@ def phase_train_profile(model, label: str = "AlexNet-128") -> dict:
         top_kernels_ms_per_step={
             k[:80]: v / PROFILE_STEPS / 1e3 for k, v in sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:12]},
+        # the port's own kernels inside the step: device µs a launch and
+        # launches a step
+        port_kernels={
+            k[:80]: dict(us_per_launch=v / count[k],
+                         launches_per_step=count[k] / PROFILE_STEPS)
+            for k, v in sorted(by_name.items())
+            if _step_part(k).endswith("(kernel)")},
     )
     if not kernels:
         print("train profile: torch.profiler recorded no device kernels "
@@ -1309,7 +1404,14 @@ def phase_train_profile(model, label: str = "AlexNet-128") -> dict:
         print(f"  {part}: {ms:.4f} ms/step")
     for name, ms in out["top_kernels_ms_per_step"].items():
         print(f"  kernel {name}: {ms:.4f} ms/step")
+    _print_port_kernels(out, "  ")
     return out
+
+
+def _print_port_kernels(profile: dict, indent: str) -> None:
+    for name, k in profile["port_kernels"].items():
+        print(f"{indent}port kernel {name}: {k['us_per_launch']:.2f} us a "
+              f"launch, {k['launches_per_step']:g} launches a step")
 
 
 def phase_train_oracle(dev: torch.device) -> dict:
@@ -2144,6 +2246,7 @@ def phase_lm_bsp2(dev: torch.device) -> dict:
               f"{prof['kernels_per_step']:.0f} kernels/step")
         for part, ms in prof["kernel_ms_per_step"].items():
             print(f"    {part}: {ms:.4f} ms/step")
+        _print_port_kernels(prof, "    ")
     print(f"  int8_sr mean of {sr['name']} ({sr['n']} fp32) vs the fp32 "
           f"all_reduce mean: max|err| {sr['max_err']:.3e} <= 2·max|g|/127 = "
           f"{sr['atol']:.3e} ({sr['inexact']} elements inexact)")
@@ -2169,6 +2272,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(dev)
     train_rows = phase_train_kernels(dev)
+    lrn_edges = phase_lrn_edges(dev)
     pool_edges = phase_pool_edges(dev)
     flash_rows = phase_flash_kernels(dev)
     flash_edges = phase_flash_edges(dev)
@@ -2260,7 +2364,8 @@ def main() -> int:
         "lm_train": lm, "lm_oracle": lm_oracle,
         "flash_kernels": [dict(r, shape=list(r["shape"]))
                           for r in flash_rows],
-        "pool_edges": pool_edges, "flash_edges": flash_edges,
+        "lrn_edges": lrn_edges, "pool_edges": pool_edges,
+        "flash_edges": flash_edges,
         "wire_kernels": wire_rows, "lm_bsp2": bsp2,
     }))
     print(json.dumps({"kernels": kernels}))

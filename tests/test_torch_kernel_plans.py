@@ -9,6 +9,12 @@
   when a pixel's channels fill 16-byte vectors and every operand starts
   on 16 bytes; the shared memory of the largest band stays within the
   figure the plan gives.
+- ``ops.lrn.plan_lrn``: the LRN kernels' persistent grid walks tiles
+  of whole rows; every row lies in exactly one tile and the CTAs' tiles
+  cover the call once (m = 1, m one row past a tile, AlexNet's rows);
+  16-byte runs exactly where a row fills them and every operand starts
+  on 16 bytes; the shared memory of the planned CTAs fits an SM; C up
+  to ``lrn_max_channels()`` (at least 8192) is taken and above refused.
 - ``ops.flash.flash_fwd_instance`` / ``flash_fwd_schedule``: which
   forward instance a call runs, and the persistent forward's order of
   (query tile, head row) items: each exactly once, the longest causal
@@ -41,6 +47,7 @@ import pytest
 import torch
 
 from theanompi_tpu_torch.ops import flash as FL
+from theanompi_tpu_torch.ops import lrn as LR
 from theanompi_tpu_torch.ops import paged_attention as PA
 from theanompi_tpu_torch.ops import pool as PO
 from theanompi_tpu_torch.parallel.quantize import quantize_rows
@@ -145,6 +152,106 @@ def test_pool_plan_at_alexnet_fills_the_card_in_one_launch_a_call():
         assert plan.vec and plan.n_bands[1] == 1
         assert plan.ctas >= PO.POOL_MIN_CTAS
         assert plan.smem_bytes <= PO.POOL_SMEM_BUDGET
+
+
+LRN_ALEXNET = ((128 * 32 * 32, 96), (128 * 15 * 15, 256))
+LRN_CASES = [(m, c, itemsize, aligned, backward)
+             for c in (1, 3, 13, 96, 256, 1024, 4096)
+             for itemsize in (4, 2) for aligned in (True, False)
+             for backward in (False, True) for m in (1, 198)]
+
+
+def _lrn_plan_is_sound(plan, m, c, itemsize, backward):
+    """What csrc/lrn.cu checks before a launch, and what it assumes."""
+    units = -(-c // plan.vec)
+    assert plan.vec == 1 or c % plan.vec == 0
+    assert 1 <= plan.tx * plan.ty <= LR.LRN_MAX_THREADS
+    assert plan.rows % plan.ty == 0 and 2 <= plan.stages <= 8
+    assert plan.smem_bytes == LR.lrn_smem_bytes(plan.rows, c, itemsize,
+                                                plan.stages, backward)
+    assert plan.smem_bytes <= LR.LRN_SMEM_MAX
+    # the planned CTAs of an SM fit its shared memory and threads
+    assert plan.ctas_per_sm >= 1
+    assert (plan.ctas_per_sm * (plan.smem_bytes + LR.LRN_CTA_RESERVED)
+            <= LR.LRN_SM_SMEM)
+    assert plan.ctas_per_sm * plan.tx * plan.ty <= LR.LRN_SM_THREADS
+    assert 1 <= plan.ctas <= min(plan.tiles, plan.ctas_per_sm * LR.LRN_SMS)
+    if backward:  # a thread keeps D^-β of its runs in registers
+        runs = plan.rows // plan.ty * -(-units // plan.tx)
+        assert runs * plan.vec <= LR.LRN_ITEM_FLOATS
+
+
+@pytest.mark.parametrize("m,c,itemsize,aligned,backward", LRN_CASES + [
+    (m, c, itemsize, True, backward) for m, c in LRN_ALEXNET
+    for itemsize in (4, 2) for backward in (False, True)])
+def test_lrn_plan_tiles_cover_every_row_once(m, c, itemsize, aligned,
+                                             backward):
+    plan = LR.plan_lrn(m, c, itemsize, aligned, backward)
+    _lrn_plan_is_sound(plan, m, c, itemsize, backward)
+    assert plan.tiles == -(-m // plan.rows)
+    seen = np.zeros(m, np.int64)
+    for cta in range(plan.ctas):
+        tiles = LR.lrn_cta_tiles(plan, m, cta)
+        assert tiles, f"CTA {cta} walks no tile"
+        for row0, rows in tiles:
+            assert 1 <= rows <= plan.rows
+            seen[row0:row0 + rows] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("c,itemsize,backward", [
+    (96, 2, False), (96, 4, True), (256, 2, True), (8, 2, False)])
+def test_lrn_plan_covers_a_call_one_row_past_a_tile(c, itemsize, backward):
+    rows = LR.plan_lrn(10 ** 5, c, itemsize, True, backward).rows
+    m = rows + 1
+    plan = LR.plan_lrn(m, c, itemsize, True, backward)
+    assert plan.rows == rows and plan.tiles == 2
+    got = [t for cta in range(plan.ctas) for t in LR.lrn_cta_tiles(plan, m,
+                                                                    cta)]
+    assert sorted(got) == [(0, rows), (rows, 1)]
+
+
+@pytest.mark.parametrize("c,itemsize,aligned,vec", [
+    (96, 2, True, 8), (96, 4, True, 4), (256, 2, True, 8), (8, 2, True, 8),
+    (4, 4, True, 4), (96, 2, False, 1), (96, 4, False, 1), (13, 2, True, 1),
+    (3, 4, True, 1), (12, 2, True, 1), (6, 4, True, 1), (1, 2, True, 1),
+    (4100, 4, True, 4), (4100, 2, True, 1),
+])
+def test_lrn_plan_takes_16_byte_runs_only_where_they_fit(c, itemsize,
+                                                         aligned, vec):
+    for backward in (False, True):
+        assert LR.plan_lrn(198, c, itemsize, aligned, backward).vec == vec
+
+
+def test_lrn_plan_at_alexnet_moves_16_bytes_a_thread_on_a_full_card():
+    """AlexNet-128's two LRN inputs at batch 128: 8 bf16 or 4 fp32
+    channels a thread, at least two CTAs an SM of an H100, in every
+    pass, and tiles to spare for the persistent grid."""
+    for m, c in LRN_ALEXNET:
+        for itemsize, vec in ((2, 8), (4, 4)):
+            for backward in (False, True):
+                plan = LR.plan_lrn(m, c, itemsize, True, backward)
+                assert plan.vec == vec
+                assert plan.ctas_per_sm >= 2
+                assert plan.ctas == plan.ctas_per_sm * LR.LRN_SMS
+                assert plan.tiles >= 2 * plan.ctas
+
+
+def test_lrn_plan_takes_channels_up_to_its_limit_and_refuses_above():
+    limit = LR.lrn_max_channels()
+    assert limit >= 8192
+    for itemsize in (4, 2):
+        for aligned in (True, False):
+            for backward in (False, True):
+                for c in (8192, limit):
+                    plan = LR.plan_lrn(3, c, itemsize, aligned, backward)
+                    _lrn_plan_is_sound(plan, 3, c, itemsize, backward)
+                with pytest.raises(ValueError, match="channels"):
+                    LR.plan_lrn(3, limit + 1, itemsize, aligned, backward)
+    # one more channel would not fit the fp32 backward's two stages
+    assert LR.lrn_smem_bytes(1, limit + 1, 4, 2, True) > LR.LRN_SMEM_MAX
+    with pytest.raises(ValueError, match="channels"):
+        LR.plan_lrn(3, 0, 2, True)
 
 
 def test_flash_forward_instance_by_shape_dtype_and_alignment():

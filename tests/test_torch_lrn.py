@@ -5,7 +5,8 @@ the port's band-matmul layer path against the reference's.
 
 Inputs are post-ReLU activations made from a seed with numpy, C = 96,
 2·9·37 = 666 rows (not a multiple of the reference kernel's 512-row
-block, so its padded tail block runs).  Tolerances: fp32 rtol = atol =
+block, so its padded tail block runs); and C = 1024, above the 768
+channels the port's first kernels took, on 2·3·5 = 30 rows.  Tolerances: fp32 rtol = atol =
 1e-5 (both compute in fp32; the window sums run in other orders, a
 band matmul there and slice sums here); bf16 one bf16 step (rtol 2⁻⁷,
 atol 1e-6): the fp32 results differ by ~1e-7 and the final rounding to
@@ -31,15 +32,16 @@ from theanompi_tpu_torch.ops.lrn import (
 )
 
 SHAPE = (2, 9, 37, 96)
+WIDE = (2, 3, 5, 1024)
 HYPER = dict(alpha=1e-4, beta=0.75, k=1.0)
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2.0 ** -7, atol=1e-6)}
 
 
-def _inputs(dtype_name, seed=0):
+def _inputs(dtype_name, seed=0, shape=SHAPE):
     rng = np.random.RandomState(seed)
-    x = np.maximum(rng.randn(*SHAPE), 0).astype(np.float32) * 4.0
-    dy = rng.randn(*SHAPE).astype(np.float32)
+    x = np.maximum(rng.randn(*shape), 0).astype(np.float32) * 4.0
+    dy = rng.randn(*shape).astype(np.float32)
     jd = jnp.dtype(dtype_name)
     td = getattr(torch, dtype_name)
     return ((jnp.asarray(x).astype(jd), jnp.asarray(dy).astype(jd)),
@@ -52,9 +54,7 @@ def _np(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("size", [3, 4, 5])
-def test_lrn_matches_reference_pallas_kernel(size, dtype_name, monkeypatch):
+def _check_against_reference(size, dtype_name, shape, seed, monkeypatch):
     calls = []
     real = pallas_lrn._rowblock_call
 
@@ -63,7 +63,7 @@ def test_lrn_matches_reference_pallas_kernel(size, dtype_name, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(pallas_lrn, "_rowblock_call", spy)
-    (xj, dyj), (xt, dyt) = _inputs(dtype_name)
+    (xj, dyj), (xt, dyt) = _inputs(dtype_name, seed, shape)
     y_ref, vjp = jax.vjp(lambda a: pallas_lrn.lrn(a, size, **HYPER), xj)
     (dx_ref,) = vjp(dyj)
     assert "_fwd_kernel" in calls and "_bwd_kernel" in calls
@@ -74,6 +74,21 @@ def test_lrn_matches_reference_pallas_kernel(size, dtype_name, monkeypatch):
     assert y.dtype == xt.dtype and xt.grad.dtype == xt.dtype
     np.testing.assert_allclose(_np(y), _np(y_ref), **TOL[dtype_name])
     np.testing.assert_allclose(_np(xt.grad), _np(dx_ref), **TOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", [3, 4, 5])
+def test_lrn_matches_reference_pallas_kernel(size, dtype_name, monkeypatch):
+    _check_against_reference(size, dtype_name, SHAPE, 0, monkeypatch)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", [4, 5])
+def test_lrn_above_the_old_channel_cap_matches_reference(size, dtype_name,
+                                                         monkeypatch):
+    """C = 1024: the reference keeps the whole channel axis in a block
+    with no cap, and so does the port's plan (``plan_lrn``)."""
+    _check_against_reference(size, dtype_name, WIDE, 4, monkeypatch)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])

@@ -1,9 +1,9 @@
-"""Time two trees' flash, max-pool backward and paged decode kernels,
-and their serving decode tick, on one card.
+"""Time two trees' flash, max-pool backward, LRN and paged decode
+kernels, and their serving decode tick, on one card.
 
     python3 theanompi_tpu_torch/utils/kernel_ab.py OLD_TREE NEW_TREE \
-        [--order old,new,new,old] [--kernels flash,pool,paged,serve] \
-        [--lm-step] [--out FILE]
+        [--order old,new,new,old] [--kernels flash,pool,lrn,paged,serve] \
+        [--lm-step] [--alexnet-step] [--out FILE]
 
 Each tree is a checkout of the repository (``OLD_TREE`` typically a
 ``git archive`` of the parent commit in an ignored directory).  For
@@ -23,6 +23,14 @@ the host has enqueued the call) and as the median of 30 calls:
   aten's flash forward returns (dQ, dK and dV in one call);
 - ``maxpool_bwd`` (bf16, 3×3/2) at AlexNet-128's three pool inputs at
   batch 128, and aten's ``max_pool2d_with_indices_backward``;
+- ``lrn_fwd`` and ``lrn_bwd`` (bf16, size 5, α 1e-4, β 0.75, k 1) at
+  AlexNet-128's two LRN inputs at batch 128, each summed over the two
+  (one launch of each a step); beside them two calls that move the
+  same bytes and compute nothing, ``copy_`` (x in, y out: the
+  forward's bytes) and ``torch.add(x, dy, out=dx)`` (the backward's);
+  and all four again after a flush that reads 256 MiB instead of
+  writing it (``_clean``: L2 then holds no dirty lines whose write-back
+  the call would pay);
 - ``paged_decode_attention`` on fp32 and int8 pools (the serving
   engine's two decode kernels; int8 rows quantized by
   ``quantize_rows``) at two shapes of the serving flagship (32 lanes, 8
@@ -52,9 +60,12 @@ the host has enqueued the call) and as the median of 30 calls:
   ``BSP().init`` on a world of 1: ``utils.benchmark.measure_step_time``
   over 20 steps, five times, the median (host clock after a device
   sync, so host dispatch is in it);
+- with ``--alexnet-step``, the same for the AlexNet-128 training step
+  of ``chip_smoke.py``'s training phase (batch 128, bf16, the LRN and
+  pool kernels; ``ALEXNET_STEP_CFG``);
 
-and prints one JSON line.  ``--kernels`` picks which of the four
-groups (flash, pool, paged, serve) a child times.  The parent prints
+and prints one JSON line.  ``--kernels`` picks which of the five
+groups (flash, pool, lrn, paged, serve) a child times.  The parent prints
 the card's name and power limit (``nvidia-smi``) and every child's
 line, then each tree's values sorted, and writes them all to
 ``--out``.  Runs only on a CUDA card.
@@ -76,8 +87,10 @@ import sys
 LM_ROWS = (64, 1024, 64)
 LM_LAYERS = 8  # launches of each flash kernel per LM step
 POOL_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256), (128, 7, 7, 256))
+LRN_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256))
+LRN_HYPER = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
 ITERS = 30
-KERNEL_GROUPS = ("flash", "pool", "paged", "serve")
+KERNEL_GROUPS = ("flash", "pool", "lrn", "paged", "serve")
 # the serving flagship: the model, its paged engine, and its traffic (8
 # greedy requests, prompts of 16..256 tokens drawn from seed 1, 32 new
 # tokens each)
@@ -106,6 +119,29 @@ LM_STEP_CFG = dict(d_model=512, n_heads=8, n_layers=LM_LAYERS,
                    compute_dtype="bfloat16", attn_impl="flash",
                    exch_strategy="ar", n_synth_train=8, n_synth_val=1,
                    n_epochs=1)
+
+
+ALEXNET_STEP_CFG = dict(compute_dtype="bfloat16", lrn_impl="pallas",
+                        pool_grad="pallas", n_synth_batches=8, n_epochs=1)
+
+
+def _alexnet_step_ms(dev) -> float:
+    """Median of five ``measure_step_time`` windows of the AlexNet-128
+    step, TF32 off as in ``chip_smoke.py``."""
+    import numpy as np
+    import torch
+
+    from theanompi_tpu_torch import BSP
+    from theanompi_tpu_torch.utils.benchmark import measure_step_time
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rule = BSP()
+    rule.init(devices=1, modelfile="theanompi_tpu_torch.models.alex_net",
+              modelclass="AlexNet", model_config=dict(ALEXNET_STEP_CFG),
+              device=dev)
+    return float(np.median([1e3 * measure_step_time(rule.model, n_steps=20)
+                            for _ in range(5)]))
 
 
 def _lm_step_ms(dev) -> float:
@@ -237,6 +273,35 @@ def _paged_times(dev, time_ms, rng) -> dict:
     return out
 
 
+def _lrn_times(dev, time_ms, rng) -> dict:
+    """ms of the bf16 LRN forward and backward at LRN_SHAPES, and of the
+    same-bytes ``copy_`` and ``add``, after a writing and a reading
+    flush; and their sums over the shapes (a step)."""
+    import numpy as np
+    import torch
+
+    from theanompi_tpu_torch.ops import lrn as LR
+
+    out = {}
+    for shape in LRN_SHAPES:
+        x = torch.from_numpy(np.maximum(rng.randn(*shape), 0).astype(
+            np.float32) * 2.0).to(dev).bfloat16()
+        dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev).bfloat16()
+        y = torch.empty_like(x)
+        calls = dict(lrn_fwd=lambda: LR.lrn_fwd(x, **LRN_HYPER),
+                     lrn_bwd=lambda: LR.lrn_bwd(x, dy, **LRN_HYPER),
+                     copy=lambda: y.copy_(x),
+                     add=lambda: torch.add(x, dy, out=y))
+        for name, fn in calls.items():
+            for clean in (False, True):
+                key = f"{name}{'_clean' if clean else ''}_ms"
+                out.setdefault(key, []).append(time_ms(fn, clean))
+    for key in list(out):
+        out[key + "_per_step"] = sum(out[key])
+    return out
+
+
 def _serve_ticks(dev) -> dict:
     """The flagship's decode tick (ms) on the fp32 and int8 pools:
     SERVE_ROUNDS runs of ``serve_requests()`` each, and their median;
@@ -328,7 +393,7 @@ def _host_us(fn, calls: int = 50, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
-def _child(lm_step: bool, groups) -> dict:
+def _child(steps, groups) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -339,13 +404,16 @@ def _child(lm_step: bool, groups) -> dict:
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
 
-    def time_ms(fn) -> float:
+    def time_ms(fn, clean: bool = False) -> float:
         for _ in range(3):
             fn()
         pairs = []
         for _ in range(ITERS):
-            flush.zero_()  # twice: longer than any wrapper's host work
-            flush.zero_()
+            for _ in range(2):  # twice: longer than any wrapper's host work
+                if clean:
+                    flush.sum()
+                else:
+                    flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -385,6 +453,8 @@ def _child(lm_step: bool, groups) -> dict:
                     idx)))
         out["maxpool_bwd_ms_per_step"] = sum(out["maxpool_bwd_ms"])
         out["aten_pool_bwd_ms_per_step"] = sum(out["aten_pool_bwd_ms"])
+    if "lrn" in groups:
+        out.update(_lrn_times(dev, time_ms, np.random.RandomState(3)))
     if "flash" in groups:
         do = torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)).to(
             dev).bfloat16()
@@ -410,15 +480,16 @@ def _child(lm_step: bool, groups) -> dict:
         out.update(_paged_times(dev, time_ms, np.random.RandomState(7)))
     if "serve" in groups:
         out.update(_serve_ticks(dev))
-    if lm_step:
+    if "--lm-step" in steps:
         out["lm_step_ms"] = _lm_step_ms(dev)
+    if "--alexnet-step" in steps:
+        out["alexnet_step_ms"] = _alexnet_step_ms(dev)
     return out
 
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        print(json.dumps(_child("--lm-step" in sys.argv[3:],
-                                sys.argv[2].split(","))))
+        print(json.dumps(_child(sys.argv[3:], sys.argv[2].split(","))))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old")
@@ -428,6 +499,8 @@ def main() -> int:
                     help="groups to time, of " + ",".join(KERNEL_GROUPS))
     ap.add_argument("--lm-step", action="store_true",
                     help="also time the LM training step (end to end)")
+    ap.add_argument("--alexnet-step", action="store_true",
+                    help="also time the AlexNet-128 training step")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = subprocess.run(
@@ -441,7 +514,8 @@ def main() -> int:
         env = dict(os.environ, PYTHONPATH=trees[label])
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
-             args.kernels] + (["--lm-step"] if args.lm_step else []),
+             args.kernels] + (["--lm-step"] if args.lm_step else [])
+            + (["--alexnet-step"] if args.alexnet_step else []),
             cwd=trees[label], env=env, check=True, capture_output=True,
             text=True)
         row = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
@@ -455,7 +529,7 @@ def main() -> int:
                 if k.endswith("_per_step") or k.startswith("paged_")
                 or ("_tick_ms" in k or "_host_ms" in k)
                 and not k.endswith("_rounds")
-                or k == "lm_step_ms"]
+                or k in ("lm_step_ms", "alexnet_step_ms")]
         summary[label] = {k: sorted(r[k] for r in mine) for k in keys}
     result = dict(card=card, order=args.order, runs=runs, summary=summary)
     print(json.dumps(dict(card=card, summary=summary)))
