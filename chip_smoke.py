@@ -122,40 +122,49 @@ Phases, each of which raises on failure (nothing is caught):
    idle share from ``torch.profiler``.
 10. LM train oracle — one fp32 step (batch 2, seq_len 1024, full width,
    flash) on the card and on the CPU from the same weights and batch.
-11. wire kernels vs plain — the four block-quantization kernels (int8
+11. wire kernels vs plain — the block-quantization kernels (int8
    round-to-nearest, int8 stochastic rounding with a fixed seed word,
-   fp16 with a block scale, dequantize of int8 and fp16 payloads)
-   against their plain versions, exact, at the shapes one bucket of 4
-   MB gives them at a world of 2 (leg 1 (2, 2048, 256), leg 2 (2048,
-   256)) and at AlexNet-128's largest bucket from its bucketing plan;
-   then timed (cold L2) at every shape of the LM's step at a world of
-   2, beside the bytes bound.  No single PyTorch call computes a
-   per-256-block amax quantization, so there is no yardstick.
+   fp16 with a block scale, dequantize of int8 and fp16 payloads, and
+   leg 2 of the ``int8_sr`` wire in one launch) against their plain
+   versions, exact, at the shapes one bucket of 4 MB gives them at a
+   world of 2 (leg 1 (2, 2048, 256), leg 2 (2048, 256)) and at
+   AlexNet-128's largest bucket from its bucketing plan; the fused leg
+   2 also at world 4, at nb 1 and on inputs 16 bytes off their base,
+   each with a zero block and a block of half-way ties in the sum; the
+   dequantize with the mean's divisor and a length n at worlds 2, 3 and
+   4, n whole and short of a block, int8 and fp16.  Then timed (cold
+   L2) per call at the 4 MB bucket and per LM step at a world of 2 on
+   each kernel's path, beside the bytes bound and a ``copy_`` of the
+   same bytes after the same flush.  No single PyTorch call computes a
+   per-256-block amax quantization, so there is no library yardstick.
 12. LM train at a world of 2 on the one card — two processes (this
    script with ``--bsp2-rank``) with ``RANK``, ``WORLD_SIZE=2``,
    ``LOCAL_RANK=0``, ``LOCAL_WORLD_SIZE=2``, each running
    ``BSP().init(devices=2, ...)`` / ``rule.wait()`` for
    ``TransformerLM`` at the LM phase's width, batch 8 per rank, bf16,
    flash, with the default wire ``int8_sr``: 8 steps and a validation
-   batch.  Checks: both ranks run gloo on ``cuda:0``; the quantize and
-   dequantize launches equal what the bucket plan predicts (2 of each
-   per live bucket and step); the loss is finite and falls; every
+   batch.  Checks: both ranks run gloo on ``cuda:0``; the wire's
+   launches equal what the bucket plan predicts (per live bucket and
+   step 1 SR quantize, 1 fused leg 2, 1 dequantize); the loss is finite
+   and falls; every
    parameter is bitwise equal across the ranks; on one step the first
    bucket's ``int8_sr`` mean lies within 2·max|g|/127 of the fp32
    ``all_reduce`` mean.  Then two steps each of ``int8`` with error
    feedback and of ``fp16s`` (their launches checked the same way, the
    parameters still equal).  Prints step ms, the wire's share of the
    step and peak memory per rank, and rank 0's step profile with each
-   wire kernel's device µs a launch inside the step.
+   wire kernel's device µs a launch inside the step and the wire
+   kernels' device ms a step.
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
-``{"kernels": [...]}`` (12 hand-written kernels) — the paged kernel's
+``{"kernels": [...]}`` (13 hand-written kernels) — the paged kernel's
 fp32 instance (what the fp32 serving run runs) and the int8 kernel
 (launches from the int8 serving run), for each training kernel its
 bf16 instance (what the training paths run) summed over the launches
 of one step (AlexNet's shapes; the LM's n_layers launches), and for
-each wire kernel its launches of one LM step at a world of 2 — and as
+each wire kernel its launches over the two-rank run of its path and
+its time over one LM step of that path at a world of 2 — and as
 the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no card is present or the port is not importable.
 """
@@ -1305,15 +1314,14 @@ def phase_train(dev: torch.device) -> dict:
 
 
 PROFILE_STEPS = 10
+WIRE_PART = "wire quantize/leg 2/dequantize (kernel)"
 # kernel name → part of the step (lower-case substrings, first match)
 STEP_PARTS = (
     ("flash attention (kernel)", ("flash_fwd_kernel", "flash_dq_kernel",
                                   "flash_dkv_kernel")),
-    ("wire quantize/dequantize (kernel)", ("quant_int8_kernel",
-                                           "quant_int8_sr_kernel",
-                                           "quant_fp16_kernel",
-                                           "dequant_int8_kernel",
-                                           "dequant_fp16_kernel")),
+    (WIRE_PART, ("quant_int8_kernel", "quant_int8_sr_rows",
+                 "quant_fp16_kernel", "dequant_sum_quant_int8_sr_rows",
+                 "dequant_rows")),
     ("memcpy (host<->card; gloo stages the wire)", ("memcpy",)),
     ("lrn (kernel)", ("lrn_fwd_staged", "lrn_bwd_staged")),
     ("pool bwd (kernel)", ("maxpool_bwd_kernel",)),
@@ -1887,17 +1895,31 @@ def _wire_sizes(model) -> list:
                          [model.param_names[i] for i in order])
 
 
-def _wire_launch_rows(sizes, strategy: str) -> dict:
-    """Rows of every launch one step gives each wire kernel at a world
-    of WIRE_WORLD: per live bucket, leg 1 quantizes (world·nb) rows and
-    leg 2 nb rows, and both legs dequantize (world·nb) rows."""
-    quant, deq = [], []
+def _wire_step_calls(sizes, strategy: str) -> dict:
+    """Every launch one step gives each wire kernel at a world of
+    WIRE_WORLD, name → shapes: a quantizer's rows, leg 2's (world, nb),
+    a dequantize's (rows, n, divisor).  Per live bucket, leg 1
+    quantizes (world·nb) rows; the SR strategies run leg 2 as one
+    launch, the others as a dequantize of (world·nb) rows, their sum and
+    a quantize of nb rows; the last dequantize returns the bucket's n
+    elements divided by the world size."""
+    w = WIRE_WORLD
+    quant = {"int8_sr": "block_quant_int8_sr",
+             "fp16s": "block_quant_fp16"}.get(strategy, "block_quant_int8")
+    calls = {quant: [], "block_dequant": [],
+             "block_dequant_sum_quant_int8_sr": []}
     for n in sizes:
-        nb = blocks_per_shard(n, WIRE_WORLD, strategy)
-        if nb is not None:
-            quant += [WIRE_WORLD * nb, nb]
-            deq += [WIRE_WORLD * nb, WIRE_WORLD * nb]
-    return dict(quant=quant, dequant=deq)
+        nb = blocks_per_shard(n, w, strategy)
+        if nb is None:
+            continue
+        calls[quant].append((w * nb,))
+        if strategy == "int8_sr":
+            calls["block_dequant_sum_quant_int8_sr"].append((w, nb))
+        else:
+            calls[quant].append((nb,))
+            calls["block_dequant"].append((w * nb, w * nb * Q.BLOCK, None))
+        calls["block_dequant"].append((w * nb, n, w))
+    return calls
 
 
 def _wire_input(rows: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -1914,6 +1936,34 @@ def _wire_input(rows: int, gen: torch.Generator, dev) -> torch.Tensor:
     return x
 
 
+def _leg2_input(world: int, nb: int, gen: torch.Generator, dev) -> tuple:
+    """Gathered leg-1 shards ``(q_t, s_t)``, ``(world, nb, 256)`` int8 and
+    ``(world, nb)`` fp32: every rank's SR payload of ``_wire_input``
+    blocks, with block 0 zero on every rank (a zero sum) and block 1
+    summing to half-way ties pinned at scale 1 (rank 0: k − 128 at scale
+    1, rank 1: ones at scale 1/2, column 0 126 + 1)."""
+    x = _wire_input(world * nb, gen, dev).view(world, nb, Q.BLOCK)
+    x[:, 0] = 0.0
+    q_t, s_t = Q.quantize_int8_sr(x, WIRE_SEED)
+    if nb > 1 and world > 1:
+        q_t[:, 1], s_t[:, 1] = 0, 0.0
+        q_t[0, 1] = (torch.arange(Q.BLOCK, device=dev) - 128).clamp(-127, 126)
+        q_t[0, 1, 0] = 126
+        q_t[1, 1] = 1
+        q_t[1, 1, 0] = 2
+        s_t[0, 1], s_t[1, 1] = 1.0, 0.5
+    return q_t, s_t
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts 16 bytes past its allocation's base."""
+    pad = 16 // t.element_size()
+    buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=t.device)
+    out = buf[pad:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 _WIRE_QUANT = (
     ("block_quant_int8", Q.quantize_int8, Q.quantize_int8_plain),
     ("block_quant_int8_sr", lambda x: Q.quantize_int8_sr(x, WIRE_SEED),
@@ -1923,9 +1973,10 @@ _WIRE_QUANT = (
 
 
 def _wire_exact(x: torch.Tensor, where: str) -> dict:
-    """Every wire kernel against its plain version on ``x``: payloads,
-    scales and dequantized values must be equal.  Returns name → max
-    |kernel − plain| (0 when equal)."""
+    """Every quantizer against its plain version on ``x``, and the
+    dequantize of each payload: payloads, scales and dequantized values
+    must be equal.  Returns name → max |kernel − plain| (0 when
+    equal)."""
     errs = {}
     for name, kern, plain in _WIRE_QUANT:
         qk, sk = kern(x)
@@ -1949,19 +2000,108 @@ def _wire_exact(x: torch.Tensor, where: str) -> dict:
     return errs
 
 
-def _wire_bytes(name: str, n: int) -> int:
+def _leg2_exact(q_t, s_t, where: str) -> float:
+    """The fused leg 2 against its plain version: payload and scales
+    equal.  Returns max |kernel − plain|."""
+    qk, sk = Q.dequant_sum_quantize_int8_sr(q_t, s_t, WIRE_SEED)
+    qp, sp = Q.dequant_sum_quantize_int8_sr_plain(q_t, s_t, WIRE_SEED)
+    torch.cuda.synchronize()
+    if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+        raise AssertionError(
+            f"block_dequant_sum_quant_int8_sr at {tuple(q_t.shape)} "
+            f"({where}): kernel != plain, {int((qk != qp).sum())} payload "
+            f"and {int((sk != sp).sum())} scale elements differ")
+    print(f"block_dequant_sum_quant_int8_sr at {tuple(q_t.shape)} ({where})"
+          ": payload and scales equal to the plain version")
+    return max(float((qk.float() - qp.float()).abs().max()),
+               float((sk - sp).abs().max()))
+
+
+def _dequant_exact(q, s, divisor, n, where: str) -> float:
+    """The dequantize with n and divisor against its plain version."""
+    got = Q.dequantize(q, s, divisor, n)
+    want = Q.dequantize_plain(q, s, divisor, n)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(
+            f"block_dequant ({q.dtype}) of {tuple(q.shape)}, n {n}, divisor "
+            f"{divisor} ({where}): kernel != plain")
+    return float((got - want).abs().max())
+
+
+def _wire_bytes(name: str, shape) -> int:
     """Bytes each input read once and each output written once: fp32
-    in, int8 (fp16) payload and one fp32 scale per 256 out; dequantize
-    reads the int8 payload of the int8_sr wire."""
-    if name == "block_quant_fp16":
-        return 4 * n + 2 * n + n // 64
-    return 4 * n + n + n // 64
+    in, int8 (fp16) payload and one fp32 scale per 256 out; leg 2 the
+    ranks' int8 shards and scales in, one payload and its scales out;
+    a dequantize the rows that hold its n elements in (int8 and their
+    scales), n fp32 out."""
+    if name == "block_dequant_sum_quant_int8_sr":
+        world, nb = shape
+        return (world + 1) * nb * (Q.BLOCK + 4)
+    if name == "block_dequant":
+        _, n, _ = shape
+        rows = -(-n // Q.BLOCK)
+        return rows * (Q.BLOCK + 4) + 4 * n
+    (rows,) = shape
+    payload = 2 if name == "block_quant_fp16" else 1
+    return rows * ((4 + payload) * Q.BLOCK + 4)
+
+
+def _wire_ops(name: str, shape) -> int:
+    """Operations: per element amax, divide, round, clamp (the SR hash
+    ~14 more; fp16 a convert); leg 2 a convert, product and sum per
+    rank's element and the SR quantize of the sum; a dequantize a
+    convert and a product (and the divide)."""
+    if name == "block_dequant_sum_quant_int8_sr":
+        world, nb = shape
+        return (3 * world + WIRE_OPS["block_quant_int8_sr"]) * nb * Q.BLOCK
+    if name == "block_dequant":
+        _, n, divisor = shape
+        return (WIRE_OPS[name] + (divisor is not None)) * n
+    (rows,) = shape
+    return WIRE_OPS[name] * rows * Q.BLOCK
+
+
+def _wire_call(name: str, shape, gen, dev) -> tuple:
+    """(kernel call, plain call) of one wire launch shape, on fresh
+    inputs."""
+    if name == "block_dequant_sum_quant_int8_sr":
+        q_t, s_t = _leg2_input(*shape, gen, dev)
+        return (lambda: Q.dequant_sum_quantize_int8_sr(q_t, s_t, WIRE_SEED),
+                lambda: Q.dequant_sum_quantize_int8_sr_plain(q_t, s_t,
+                                                             WIRE_SEED))
+    if name == "block_dequant":
+        rows, n, divisor = shape
+        q, s = Q.quantize_int8_sr(_wire_input(rows, gen, dev), WIRE_SEED)
+        return (lambda: Q.dequantize(q, s, divisor, n),
+                lambda: Q.dequantize_plain(q, s, divisor, n))
+    x = _wire_input(shape[0], gen, dev)
+    _, kern, plain = next(c for c in _WIRE_QUANT if c[0] == name)
+    return lambda: kern(x), lambda: plain(x)
+
+
+def _copy_call(nbytes: int, dev):
+    """``copy_`` of nbytes / 2 bytes: the same bytes moved, nothing
+    computed (the yardstick of a bytes-bound call)."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
+
+
+# the wire kernels of phase 11: name → (the path whose step launches
+# it, the reference's kernel line in theanompi_tpu/parallel/quantize.py)
+WIRE_KERNELS = (("block_quant_int8", "int8", 107),
+                ("block_quant_int8_sr", "int8_sr", 134),
+                ("block_quant_fp16", "fp16s", 207),
+                ("block_dequant", "int8_sr", 218),
+                ("block_dequant_sum_quant_int8_sr", "int8_sr", 134))
 
 
 def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
-    """The four wire kernels against their plain versions, exact, at
-    the LM's 4 MB bucket (world 2) and at AlexNet-128's largest bucket,
-    then their times per call and per LM step at a world of 2."""
+    """The wire kernels against their plain versions, exact, at the LM's
+    4 MB bucket (world 2) and at AlexNet-128's largest bucket, the fused
+    leg 2 and the dequantize with n and divisor at their edges, then
+    their times per call and per LM step at a world of 2."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     errs = {}
@@ -1969,8 +2109,9 @@ def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
     nb_lm = blocks_per_shard(n_lm, WIRE_WORLD, "int8_sr")
     n_alex = max(alex_sizes)
     nb_alex = blocks_per_shard(n_alex, WIRE_WORLD, "int8_sr")
-    for where, nb in (("LM 4 MB bucket", nb_lm),
-                      (f"AlexNet-128 largest bucket, {n_alex} fp32", nb_alex)):
+    lm_where = "LM 4 MB bucket"
+    alex_where = f"AlexNet-128 largest bucket, {n_alex} fp32"
+    for where, nb in ((lm_where, nb_lm), (alex_where, nb_alex)):
         for shape in ((WIRE_WORLD, nb, Q.BLOCK), (nb, Q.BLOCK)):
             x = _wire_input(WIRE_WORLD * nb if len(shape) == 3 else nb,
                             gen, dev).view(shape)
@@ -1979,53 +2120,79 @@ def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
             print(f"wire kernels at {shape} ({where}): int8, int8_sr (seed "
                   f"{WIRE_SEED:#x}), fp16 payloads, scales and dequantized "
                   "values equal to the plain versions")
-    step_rows = _wire_launch_rows(lm_sizes, "int8_sr")
-    per_rows = {}
-    big = WIRE_WORLD * nb_lm  # the per-call shape: one bucket's leg 1
-    for r in sorted(set(step_rows["quant"]) | set(step_rows["dequant"])
-                    | {big}):
-        x = _wire_input(r, gen, dev)
-        q8, s8 = Q.quantize_int8(x)
-        calls = {
-            "block_quant_int8": (lambda x=x: Q.quantize_int8(x),
-                                 lambda x=x: Q.quantize_int8_plain(x)),
-            "block_quant_int8_sr": (
-                lambda x=x: Q.quantize_int8_sr(x, WIRE_SEED),
-                lambda x=x: Q.quantize_int8_sr_plain(x, WIRE_SEED)),
-            "block_quant_fp16": (lambda x=x: Q.quantize_fp16(x),
-                                 lambda x=x: Q.quantize_fp16_plain(x)),
-            "block_dequant": (lambda q=q8, s=s8: Q.dequantize(q, s),
-                              lambda q=q8, s=s8: Q.dequantize_plain(q, s)),
-        }
-        per_rows[r] = {name: (_time_ms(k, flush), _time_ms(p, flush))
-                       for name, (k, p) in calls.items()}
+    leg2 = [_leg2_exact(*_leg2_input(WIRE_WORLD, nb_lm, gen, dev), lm_where),
+            _leg2_exact(*_leg2_input(WIRE_WORLD, nb_alex, gen, dev),
+                        alex_where),
+            _leg2_exact(*_leg2_input(4, nb_lm, gen, dev), "world 4"),
+            _leg2_exact(*_leg2_input(WIRE_WORLD, 1, gen, dev), "nb 1")]
+    q_t, s_t = _leg2_input(WIRE_WORLD, 37, gen, dev)
+    leg2.append(_leg2_exact(_off16(q_t), _off16(s_t),
+                            "inputs 16 bytes off their base"))
+    errs["block_dequant_sum_quant_int8_sr"] = max(leg2)
+    deq = []
+    for world in (WIRE_WORLD, 3, 4):
+        q, s = Q.quantize_int8_sr(_wire_input(world * nb_lm, gen, dev).view(
+            world, nb_lm, Q.BLOCK), WIRE_SEED)
+        qh, sh = Q.quantize_fp16(_wire_input(world * 37, gen, dev).view(
+            world, 37, Q.BLOCK))
+        full = q.numel()
+        for qq, ss, n, div in ((q, s, full, world), (q, s, full - 37, world),
+                               (q, s, 1, world), (q, s, full - 37, None),
+                               (qh, sh, qh.numel() - 300, world),
+                               (_off16(q), s, full - 5, world)):
+            deq.append(_dequant_exact(qq, ss, div, n, f"world {world}"))
+    errs["block_dequant"] = max(errs["block_dequant"], max(deq))
+    print(f"block_dequant with n and divisor: {len(deq)} calls (worlds "
+          f"{WIRE_WORLD}, 3, 4; n whole, short of a block by 37 and 5, 1; "
+          "int8 and fp16; no divisor; a payload 16 bytes off its base) "
+          "equal to the plain version")
+    steps = {path: _wire_step_calls(lm_sizes, path)
+             for path in ("int8", "int8_sr", "fp16s")}
+    leg1 = (WIRE_WORLD * nb_lm,)  # the per-call shapes: one 4 MB bucket
+    per_call = dict(block_quant_int8=leg1, block_quant_int8_sr=leg1,
+                    block_quant_fp16=leg1,
+                    block_dequant=(WIRE_WORLD * nb_lm, n_lm, WIRE_WORLD),
+                    block_dequant_sum_quant_int8_sr=(WIRE_WORLD, nb_lm))
+    shapes = set(per_call.items())
+    for name, path, _ in WIRE_KERNELS:
+        shapes |= {(name, shape) for shape in steps[path][name]}
+    times, copies = {}, {}
+    for name, shape in sorted(shapes, key=str):
+        kern, plain = _wire_call(name, shape, gen, dev)
+        nbytes = _wire_bytes(name, shape)
+        times[name, shape] = (_time_ms(kern, flush), _time_ms(plain, flush))
+        if nbytes not in copies:
+            copies[nbytes] = _time_ms(_copy_call(nbytes, dev), flush)
     rows = []
-    for name in ("block_quant_int8", "block_quant_int8_sr",
-                 "block_quant_fp16", "block_dequant"):
-        launch_rows = step_rows["dequant" if name == "block_dequant"
-                                else "quant"]
-        ms = sum(per_rows[r][name][0] for r in launch_rows)
-        plain_ms = sum(per_rows[r][name][1] for r in launch_rows)
-        nbytes = sum(_wire_bytes(name, r * Q.BLOCK) for r in launch_rows)
-        ops = sum(WIRE_OPS[name] * r * Q.BLOCK for r in launch_rows)
+    for name, path, line in WIRE_KERNELS:
+        call = per_call[name]
+        launches = steps[path][name]
+        nbytes = sum(_wire_bytes(name, sh) for sh in launches)
+        ops = sum(_wire_ops(name, sh) for sh in launches)
         bound_ms, bound_by = _bound(nbytes, ops)
-        call_bound, _ = _bound(_wire_bytes(name, big * Q.BLOCK),
-                               WIRE_OPS[name] * big * Q.BLOCK)
-        row = dict(name=name, max_abs_err=errs[name], ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=None, launches_per_step=len(launch_rows),
-                   bytes_per_step=nbytes, call_rows=big,
-                   call_ms=per_rows[big][name][0],
-                   call_plain_ms=per_rows[big][name][1],
-                   call_bound_ms=call_bound)
+        call_bound, _ = _bound(_wire_bytes(name, call), _wire_ops(name, call))
+        row = dict(
+            name=name, replaces=f"theanompi_tpu/parallel/quantize.py:{line}",
+            path=path, max_abs_err=errs[name],
+            ms=sum(times[name, sh][0] for sh in launches),
+            plain_ms=sum(times[name, sh][1] for sh in launches),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            copy_ms=sum(copies[_wire_bytes(name, sh)] for sh in launches),
+            launches_per_step=len(launches), bytes_per_step=nbytes,
+            call_shape=list(call), call_ms=times[name, call][0],
+            call_plain_ms=times[name, call][1], call_bound_ms=call_bound,
+            call_copy_ms=copies[_wire_bytes(name, call)])
         rows.append(row)
         print(f"{name}: max|err| {row['max_abs_err']:.1e} (exact); per call "
-              f"at ({big}, 256): kernel {row['call_ms']:.4f} ms, plain "
-              f"{row['call_plain_ms']:.4f} ms, bound {call_bound:.4f} ms; "
-              f"per LM step at world {WIRE_WORLD} ({len(launch_rows)} "
-              f"launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B); library "
-              "none (no one PyTorch call quantizes per 256-block amax)")
+              f"at {call}: kernel {row['call_ms']:.4f} ms, plain "
+              f"{row['call_plain_ms']:.4f} ms, bound {call_bound:.4f} ms, "
+              f"copy_ of the same bytes {row['call_copy_ms']:.4f} ms; per "
+              f"LM step of {path} at world {WIRE_WORLD} ({len(launches)} "
+              f"launches): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {nbytes} B), copy_ {row['copy_ms']:.4f} ms; "
+              "library none (no one PyTorch call quantizes per 256-block "
+              "amax)")
     return rows
 
 
@@ -2122,17 +2289,24 @@ def _bsp2_rank(out_path: str) -> int:
 
 
 def _want_launches(sizes, strategy: str, steps: int, ef: bool) -> dict:
-    """Launch counts the bucket plan predicts over ``steps`` steps: 2
-    quantizes and 2 dequantizes per live bucket and step, and with
-    error feedback one more dequantize (the leg-1 image)."""
-    live = sum(blocks_per_shard(n, WIRE_WORLD, strategy) is not None
-               for n in sizes)
-    quant = {"int8_sr": "quantize_int8_sr", "pallas_int8_sr":
-             "quantize_int8_sr", "fp16s": "quantize_fp16",
-             "pallas_fp16s": "quantize_fp16"}.get(strategy, "quantize_int8")
+    """Launch counts the bucket plan predicts over ``steps`` steps, per
+    live bucket and step: ``int8_sr`` 1 SR quantize, 1 fused leg 2 and 1
+    dequantize; the other block strategies 2 quantizes and 2
+    dequantizes; with error feedback one more dequantize (the leg-1
+    image)."""
+    per = sum(blocks_per_shard(n, WIRE_WORLD, strategy) is not None
+              for n in sizes) * steps
     want = dict(quantize_int8=0, quantize_int8_sr=0, quantize_fp16=0,
-                dequantize=(3 if ef else 2) * live * steps)
-    want[quant] = 2 * live * steps
+                dequantize=0, dequant_sum_quantize_int8_sr=0)
+    if strategy in ("int8_sr", "pallas_int8_sr"):
+        want.update(quantize_int8_sr=per, dequant_sum_quantize_int8_sr=per,
+                    dequantize=per)
+    else:
+        quant = ("quantize_fp16" if strategy in ("fp16s", "pallas_fp16s")
+                 else "quantize_int8")
+        want.update({quant: 2 * per, "dequantize": 2 * per})
+    if ef:
+        want["dequantize"] += per
     return want
 
 
@@ -2247,6 +2421,14 @@ def phase_lm_bsp2(dev: torch.device) -> dict:
         for part, ms in prof["kernel_ms_per_step"].items():
             print(f"    {part}: {ms:.4f} ms/step")
         _print_port_kernels(prof, "    ")
+        wire = [k for n, k in prof["port_kernels"].items()
+                if _step_part(n) == WIRE_PART]
+        n_wire = sum(k["launches_per_step"] for k in wire)
+        us_wire = sum(k["us_per_launch"] * k["launches_per_step"]
+                      for k in wire)
+        print(f"    the wire kernels inside the step: {us_wire / 1e3:.4f} "
+              f"ms/step in {n_wire:g} launches ({us_wire / max(n_wire, 1):.2f}"
+              " us a launch)")
     print(f"  int8_sr mean of {sr['name']} ({sr['n']} fp32) vs the fp32 "
           f"all_reduce mean: max|err| {sr['max_err']:.3e} <= 2·max|g|/127 = "
           f"{sr['atol']:.3e} ({sr['inexact']} elements inexact)")
@@ -2341,12 +2523,14 @@ def main() -> int:
         block_quant_int8=r0["more"]["int8+ef"]["launches"]["quantize_int8"],
         block_quant_int8_sr=r0["launches"]["quantize_int8_sr"],
         block_quant_fp16=r0["more"]["fp16s"]["launches"]["quantize_fp16"],
-        block_dequant=r0["launches"]["dequantize"])
-    for row, line in zip(wire_rows, (107, 134, 207, 218)):
+        block_dequant=r0["launches"]["dequantize"],
+        block_dequant_sum_quant_int8_sr=r0["launches"][
+            "dequant_sum_quantize_int8_sr"])
+    for row in wire_rows:
         kernels.append({
             "name": row["name"], "route": "cuda",
             "source": "theanompi_tpu_torch/csrc/block_quant.cu",
-            "replaces": f"theanompi_tpu/parallel/quantize.py:{line}",
+            "replaces": row["replaces"],
             "launches": wire_launches[row["name"]],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},

@@ -13,9 +13,11 @@ wire per bucket; without it, one wire per tensor.  Wire strategies:
   block-quantized wire (``parallel.quantize``): each rank pads its flat
   payload to whole shards of 256-element blocks and quantizes it (leg
   1), ``all_to_all_single`` hands shard p to rank p, each rank
-  dequantizes and sums its shard in fp32, quantizes the sum (leg 2),
-  and ``all_gather_into_tensor`` gives every rank every shard, which it
-  dequantizes.  Only payload and fp32 scales cross the wire: int8 ≈
+  dequantizes and sums its shard in fp32, quantizes the sum (leg 2,
+  ``wire_leg2``: one launch for the SR strategies), and
+  ``all_gather_into_tensor`` gives every rank every shard, which it
+  dequantizes (``dequantize`` with the mean's division by the world
+  size in the same pass).  Only payload and fp32 scales cross the wire: int8 ≈
   N + N/64 bytes each way, fp16s ≈ 2N + N/64, against 4N for ``ar``.
   Every rank dequantizes the same gathered bytes, so the reduced
   gradients are bitwise equal across the ranks.  A payload too small
@@ -88,6 +90,19 @@ def block_wire_kernels(strategy: str):
     return quant, Q.dequantize
 
 
+def wire_leg2(strategy: str, q_t: torch.Tensor, s_t: torch.Tensor,
+              seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Leg 2 of a block wire on this rank's gathered shards (``(world,
+    nb, 256)`` payload, ``(world, nb)`` scales): the requantized fp32
+    sum over the ranks, ``(q2, s2)``.  The SR strategies run it as one
+    call (``dequant_sum_quantize_int8_sr``, ``seed`` the leg-2 word);
+    the others dequantize, sum and quantize in three."""
+    if strategy in _SR_STRATEGIES:
+        return Q.dequant_sum_quantize_int8_sr(q_t, s_t, seed)
+    quant, dequant = block_wire_kernels(strategy)
+    return quant(dequant(q_t, s_t).sum(dim=0), seed)
+
+
 def blocks_per_shard(n: int, world: int, strategy: str) -> Optional[int]:
     """Quantization blocks in each rank's shard of an ``n``-element flat
     payload on a block ``strategy``'s wire at ``world`` ranks, or None
@@ -138,21 +153,21 @@ class BSP_Exchanger:
         pad = world * nb * Q.BLOCK - n
         if pad:
             flat = F.pad(flat, (0, pad))
-        quant, dequant = block_wire_kernels(self.strategy)
+        quant, _ = block_wire_kernels(self.strategy)
         q, s = quant(flat.view(world, nb, Q.BLOCK), w1)
-        return dict(q=q, s=s, w2=w2, n=n, quant=quant, dequant=dequant)
+        return dict(q=q, s=s, w2=w2, n=n)
 
-    def _wire_from_packed(self, packed: dict) -> torch.Tensor:
+    def _wire_from_packed(self, packed: dict,
+                          divisor: Optional[int] = None) -> torch.Tensor:
         """The two collective legs after a leg-1 pack; returns the fp32
-        SUM over the ranks, flat, of the packed length."""
-        q, s, quant, dequant = (packed["q"], packed["s"], packed["quant"],
-                                packed["dequant"])
+        sum over the ranks, flat, of the packed length, each element
+        divided by ``divisor`` when given (the mean)."""
+        q, s = packed["q"], packed["s"]
         q_t, s_t = torch.empty_like(q), torch.empty_like(s)
         # row p of the result is rank p's shard for this rank
         dist.all_to_all_single(q_t, q, group=self.group)
         dist.all_to_all_single(s_t, s, group=self.group)
-        mine = dequant(q_t, s_t).sum(dim=0)  # fp32 (nb, BLOCK)
-        q2, s2 = quant(mine, packed["w2"])
+        q2, s2 = wire_leg2(self.strategy, q_t, s_t, packed["w2"])
         world = q.shape[0]
         q_all = torch.empty((world, *q2.shape), dtype=q2.dtype,
                             device=q2.device)
@@ -163,13 +178,13 @@ class BSP_Exchanger:
                                     group=self.group)
         dist.all_gather_into_tensor(s_all.view(-1), s2.view(-1),
                                     group=self.group)
-        return dequant(q_all, s_all).view(-1)[:packed["n"]]
+        # the first n elements, divided in the same pass for the mean
+        return Q.dequantize(q_all, s_all, divisor, packed["n"])
 
     @staticmethod
     def _img_from_packed(packed: dict) -> torch.Tensor:
         """The dequantized leg-1 image, flat, of the packed length."""
-        return packed["dequant"](packed["q"], packed["s"]).view(-1)[
-            :packed["n"]]
+        return Q.dequantize(packed["q"], packed["s"], n=packed["n"])
 
     def _sum_fp32(self, flat: torch.Tensor) -> torch.Tensor:
         out = flat.clone()
@@ -188,9 +203,9 @@ class BSP_Exchanger:
         if world == 1:
             return flat
         packed = self._leg1_pack(flat, seed)
-        total = (self._sum_fp32(flat) if packed is None
-                 else self._wire_from_packed(packed))
-        return total / world
+        if packed is None:
+            return self._sum_fp32(flat) / world
+        return self._wire_from_packed(packed, world)
 
     def _require_ef_capable(self) -> None:
         if self.strategy != "ar" and not self.block:
@@ -212,7 +227,7 @@ class BSP_Exchanger:
         if packed is None:  # lossless fallback: nothing dropped
             return self._sum_fp32(flat) / world, flat
         loss = flat - self._img_from_packed(packed)
-        return self._wire_from_packed(packed) / world, flat - loss
+        return self._wire_from_packed(packed, world), flat - loss
 
     def _flat_roundtrip(self, flat: torch.Tensor, seed=None) -> torch.Tensor:
         """This rank's contribution as leg 1 represents it."""

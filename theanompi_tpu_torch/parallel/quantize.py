@@ -20,7 +20,17 @@ and one fp32 scale per row.
   same payload.
 - ``quantize_fp16`` — ``q = fp16(x / safe)`` with ``s = amax / 256``
   (``FP16_CAP``): every block lands in fp16's normal range.
-- ``dequantize`` — ``float(q) · s`` for an int8 or fp16 payload.
+- ``dequantize`` — ``float(q) · s`` for an int8 or fp16 payload;
+  with ``n`` only the first ``n`` elements of the flattened result, and
+  with ``divisor`` each divided by it (IEEE, after the product): the
+  block wire's last step, the mean over the ranks, in one pass.
+- ``dequant_sum_quantize_int8_sr`` — leg 2 of the ``int8_sr`` wire in
+  one call: the gathered ``(world, nb, 256)`` int8 shards and ``(world,
+  nb)`` scales are dequantized, summed over the ranks in ascending
+  order (``((d₀ + d₁) + d₂) + …``, each product and sum rounded once:
+  what ``torch.sum(dim=0)`` gives on the CPU) and SR-quantized with
+  ``seed`` as ``quantize_int8_sr`` would quantize the ``(nb, 256)``
+  sum.  Only the payload and scales of the sum come out.
 - ``quantize_rows`` / ``dequantize_rows`` — the same int8
   round-to-nearest codec over the last axis of any width, in plain
   torch on any device (no kernel: the reference applies
@@ -46,7 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -131,10 +141,37 @@ def quantize_fp16_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return (x / safe[..., None]).to(torch.float16), s
 
 
-def dequantize_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """int8 or fp16 (…, 256) payload and (…,) scales → fp32 (…, 256)."""
+def dequantize_plain(q: torch.Tensor, s: torch.Tensor,
+                     divisor: Optional[float] = None,
+                     n: Optional[int] = None) -> torch.Tensor:
+    """int8 or fp16 (…, 256) payload and (…,) scales → fp32 (…, 256), or
+    with ``n`` the first ``n`` elements flat; with ``divisor`` each
+    value divided by it (by a tensor: an IEEE division on every
+    device)."""
     _check_payload(q, s)
-    return q.to(torch.float32) * s[..., None]
+    _check_length(q, n)
+    out = q.to(torch.float32) * s[..., None]
+    if n is not None:
+        out = out.view(-1)[:n]
+    if divisor is not None:
+        out = out / torch.full_like(out, float(divisor))
+    return out
+
+
+def dequant_sum_quantize_int8_sr_plain(q_t: torch.Tensor, s_t: torch.Tensor,
+                                       seed: int
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(world, nb, 256) int8 and (world, nb) fp32 → the SR-quantized
+    ``(nb, 256)`` sum over the ranks: ``quantize_int8_sr_plain(
+    dequantize_plain(q_t, s_t).sum(dim=0), seed)``, with the sum written
+    out in ascending rank order so that it is that order on every
+    device."""
+    _check_shards(q_t, s_t)
+    d = dequantize_plain(q_t, s_t)
+    total = d[0]
+    for p in range(1, d.shape[0]):
+        total = total + d[p]
+    return quantize_int8_sr_plain(total, seed)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,6 +188,23 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """(…, n) int8 and (…,) fp32 scales → fp32 (…, n)."""
     return q.to(torch.float32) * s[..., None]
+
+
+def _check_length(q: torch.Tensor, n: Optional[int]) -> None:
+    if n is not None and not 0 <= n <= q.numel():
+        raise ValueError(f"dequantize: n={n} outside 0..{q.numel()}, the "
+                         "payload's elements")
+
+
+def _check_shards(q_t: torch.Tensor, s_t: torch.Tensor) -> None:
+    if (q_t.dtype != torch.int8 or q_t.dim() != 3 or q_t.shape[0] < 1
+            or q_t.shape[-1] != BLOCK or s_t.dtype != torch.float32
+            or s_t.shape != q_t.shape[:-1] or s_t.device != q_t.device):
+        raise ValueError(
+            f"dequant_sum_quantize_int8_sr: want (world, nb, {BLOCK}) int8 "
+            f"shards and (world, nb) float32 scales on one device; got "
+            f"{q_t.dtype} {tuple(q_t.shape)} on {q_t.device}, {s_t.dtype} "
+            f"{tuple(s_t.shape)} on {s_t.device}")
 
 
 def _check_payload(q: torch.Tensor, s: torch.Tensor) -> None:
@@ -172,15 +226,18 @@ def _check_payload(q: torch.Tensor, s: torch.Tensor) -> None:
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL)
     ptr, rows = ctypes.c_void_p, ctypes.c_long
+    deq = [ctypes.c_long, ctypes.c_float]  # n, divisor
     for name, n_ptr, extra in (
-        ("block_quant_int8", 3, []),
-        ("block_quant_int8_sr", 3, [ctypes.c_uint32]),
-        ("block_quant_fp16", 3, []),
-        ("block_dequant_int8", 3, []),
-        ("block_dequant_fp16", 3, []),
+        ("block_quant_int8", 3, [rows]),
+        ("block_quant_int8_sr", 3, [rows, ctypes.c_uint32]),
+        ("block_quant_fp16", 3, [rows]),
+        ("block_dequant_int8", 3, [rows] + deq),
+        ("block_dequant_fp16", 3, [rows] + deq),
+        ("block_dequant_sum_quant_int8_sr", 4,
+         [ctypes.c_int, rows, ctypes.c_uint32]),
     ):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * n_ptr + [rows] + extra + [ptr]
+        fn.argtypes = [ptr] * n_ptr + extra + [ptr]
         fn.restype = ctypes.c_int
     lib.block_quant_error_string.argtypes = [ctypes.c_int]
     lib.block_quant_error_string.restype = ctypes.c_char_p
@@ -197,11 +254,10 @@ def _route(x: torch.Tensor, what: str) -> bool:
                      f"not {x.device}")
 
 
-def _launch(name: str, rows: int, ptrs, *extra) -> None:
+def _launch(name: str, ptrs, *extra) -> None:
     lib = _library()
     stream = torch.cuda.current_stream(ptrs[0].device).cuda_stream
-    rc = getattr(lib, name)(*[p.data_ptr() for p in ptrs], rows, *extra,
-                            stream)
+    rc = getattr(lib, name)(*[p.data_ptr() for p in ptrs], *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.block_quant_error_string(rc).decode()}")
@@ -220,7 +276,7 @@ def _quantize(name: str, x: torch.Tensor, payload: torch.dtype, *extra):
     s = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     rows = x.numel() // BLOCK
     if rows:
-        _launch(name, rows, (x, q, s), *extra)
+        _launch(name, (x, q, s), rows, *extra)
     return q, s, rows > 0
 
 
@@ -256,27 +312,55 @@ def quantize_fp16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """fp32 reconstruction of an int8 or fp16 payload."""
+def dequantize(q: torch.Tensor, s: torch.Tensor,
+               divisor: Optional[float] = None,
+               n: Optional[int] = None) -> torch.Tensor:
+    """fp32 reconstruction of an int8 or fp16 payload: (…, 256), or with
+    ``n`` its first ``n`` elements flat, each divided by ``divisor``
+    when given."""
     if not _route(q, "dequantize"):
-        return dequantize_plain(q, s)
+        return dequantize_plain(q, s, divisor, n)
     _check_payload(q, s)
+    _check_length(q, n)
     q, s = _dense(q), s.contiguous()
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    rows = q.numel() // BLOCK
-    if rows:
+    out = torch.empty(q.shape if n is None else (n,), dtype=torch.float32,
+                      device=q.device)
+    if out.numel():
         name = ("block_dequant_int8" if q.dtype == torch.int8
                 else "block_dequant_fp16")
-        _launch(name, rows, (q, s, out))
+        _launch(name, (q, s, out), q.numel() // BLOCK, out.numel(),
+                1.0 if divisor is None else float(divisor))
         dequantize.launches += 1
     return out
+
+
+def dequant_sum_quantize_int8_sr(q_t: torch.Tensor, s_t: torch.Tensor,
+                                 seed: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Leg 2 of the ``int8_sr`` wire in one launch: the SR-quantized sum
+    over the ranks of gathered ``(world, nb, 256)`` int8 shards; see the
+    module docstring."""
+    if not _route(q_t, "dequant_sum_quantize_int8_sr"):
+        return dequant_sum_quantize_int8_sr_plain(q_t, s_t, seed)
+    _check_shards(q_t, s_t)
+    q_t, s_t = _dense(q_t), s_t.contiguous()
+    world, nb = q_t.shape[0], q_t.shape[1]
+    q2 = torch.empty((nb, BLOCK), dtype=torch.int8, device=q_t.device)
+    s2 = torch.empty((nb,), dtype=torch.float32, device=q_t.device)
+    if nb:
+        _launch("block_dequant_sum_quant_int8_sr", (q_t, s_t, q2, s2), world,
+                nb, int(seed) & _M32)
+        dequant_sum_quantize_int8_sr.launches += 1
+    return q2, s2
 
 
 quantize_int8.launches = 0
 quantize_int8_sr.launches = 0
 quantize_fp16.launches = 0
 dequantize.launches = 0
-WRAPPERS = (quantize_int8, quantize_int8_sr, quantize_fp16, dequantize)
+dequant_sum_quantize_int8_sr.launches = 0
+WRAPPERS = (quantize_int8, quantize_int8_sr, quantize_fp16, dequantize,
+            dequant_sum_quantize_int8_sr)
 
 
 def reset_launches() -> None:

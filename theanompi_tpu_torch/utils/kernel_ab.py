@@ -1,8 +1,9 @@
-"""Time two trees' flash, max-pool backward, LRN and paged decode
-kernels, and their serving decode tick, on one card.
+"""Time two trees' flash, max-pool backward, LRN, paged decode and
+block-wire kernels, and their serving decode tick, on one card.
 
     python3 theanompi_tpu_torch/utils/kernel_ab.py OLD_TREE NEW_TREE \
-        [--order old,new,new,old] [--kernels flash,pool,lrn,paged,serve] \
+        [--order old,new,new,old] \
+        [--kernels flash,pool,lrn,paged,serve,wire] \
         [--lm-step] [--alexnet-step] [--out FILE]
 
 Each tree is a checkout of the repository (``OLD_TREE`` typically a
@@ -54,6 +55,22 @@ the host has enqueued the call) and as the median of 30 calls:
   after one fp32 run under ``torch.profiler`` with CUDA activity
   (``_after_profile``: what a profile leaves behind for the runs after
   it);
+- ``wire``: the ``int8_sr`` block wire of one 4 MB bucket at a world
+  of 2 (``WIRE_ROWS`` rows of 256 fp32 in leg 1), without the
+  collectives (at a world of 2 the gathered shards have the shape of
+  the leg-1 payload, which stands in for them): the SR quantize of leg
+  1 (``wire_sr_quant_ms``); leg 2 (``wire_leg2_ms``), one
+  ``dequant_sum_quantize_int8_sr`` call where the tree has it, else its
+  three public calls ``quantize_int8_sr(dequantize(q_t, s_t).sum(dim=0),
+  w2)``; the last dequantize with the mean's divide (``wire_final_ms``),
+  ``dequantize(q_all, s_all, 2, n)`` where the tree takes a divisor,
+  else ``dequantize(q_all, s_all).view(-1)[:n] / 2``; the three in a
+  row (``wire_chain_ms``); beside each a ``copy_`` that moves the bytes
+  the call must move (``wire_*_copy_ms``).  Last in the child, after
+  every timed call, the same chain over every live bucket of the LM's
+  step (``LM_STEP_CFG``'s parameters, 4 MB buckets) under
+  ``torch.profiler``, five times: the device time of its kernels a
+  step (``wire_step_device_ms``), by kernel, and their count;
 - with ``--lm-step``, the end-to-end training step of ``TransformerLM``
   at the serving flagship's width (d_model 512, 8 heads, 8 layers,
   vocab 4096, seq_len 1024), batch 8, bf16, flash, through
@@ -64,8 +81,8 @@ the host has enqueued the call) and as the median of 30 calls:
   of ``chip_smoke.py``'s training phase (batch 128, bf16, the LRN and
   pool kernels; ``ALEXNET_STEP_CFG``);
 
-and prints one JSON line.  ``--kernels`` picks which of the five
-groups (flash, pool, lrn, paged, serve) a child times.  The parent prints
+and prints one JSON line.  ``--kernels`` picks which of the six
+groups (flash, pool, lrn, paged, serve, wire) a child times.  The parent prints
 the card's name and power limit (``nvidia-smi``) and every child's
 line, then each tree's values sorted, and writes them all to
 ``--out``.  Runs only on a CUDA card.
@@ -90,7 +107,13 @@ POOL_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256), (128, 7, 7, 256))
 LRN_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256))
 LRN_HYPER = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
 ITERS = 30
-KERNEL_GROUPS = ("flash", "pool", "lrn", "paged", "serve")
+KERNEL_GROUPS = ("flash", "pool", "lrn", "paged", "serve", "wire")
+# the int8_sr wire of one 4 MB bucket at a world of 2: leg 1's rows, the
+# world, and the two legs' seed words
+WIRE_ROWS = 4096
+WIRE_WORLD = 2
+WIRE_SEEDS = (0x9E3779B9, 0x7F4A7C15)
+WIRE_PROFILE_REPS = 5
 # the serving flagship: the model, its paged engine, and its traffic (8
 # greedy requests, prompts of 16..256 tokens drawn from seed 1, 32 new
 # tokens each)
@@ -302,6 +325,129 @@ def _lrn_times(dev, time_ms, rng) -> dict:
     return out
 
 
+def _wire_chain(Q, x, n: int):
+    """The three calls of the ``int8_sr`` wire on ``x`` ((world, nb, 256)
+    fp32, the first n elements live) in this tree's API:
+    ``(leg1, leg2, final)``, each a function of no arguments, leg 2 and
+    the last dequantize on the leg-1 payload standing in for the
+    gathered shards."""
+    w1, w2 = WIRE_SEEDS
+    world = x.shape[0]
+    q, s = Q.quantize_int8_sr(x, w1)
+    fused = getattr(Q, "dequant_sum_quantize_int8_sr", None)
+
+    def leg1():
+        return Q.quantize_int8_sr(x, w1)
+
+    if fused is not None:
+        def leg2():
+            return fused(q, s, w2)
+
+        def final():
+            return Q.dequantize(q, s, world, n)
+    else:
+        def leg2():
+            return Q.quantize_int8_sr(Q.dequantize(q, s).sum(dim=0), w2)
+
+        def final():
+            return Q.dequantize(q, s).view(-1)[:n] / world
+    return leg1, leg2, final
+
+
+def _wire_times(dev, time_ms, rng) -> dict:
+    """ms of the ``int8_sr`` wire's calls at one 4 MB bucket, and of a
+    ``copy_`` of each call's bytes."""
+    import numpy as np
+    import torch
+
+    from theanompi_tpu_torch.parallel import quantize as Q
+
+    w, nb = WIRE_WORLD, WIRE_ROWS // WIRE_WORLD
+    n = WIRE_ROWS * Q.BLOCK
+    x = torch.from_numpy((rng.randn(WIRE_ROWS, Q.BLOCK) * 10.0 ** rng.uniform(
+        -6, 0, (WIRE_ROWS, 1))).astype(np.float32)).to(dev).view(w, nb,
+                                                                 Q.BLOCK)
+    leg1, leg2, final = _wire_chain(Q, x, n)
+
+    def chain():
+        leg1()
+        leg2()
+        final()
+
+    nbytes = dict(sr_quant=WIRE_ROWS * (5 * Q.BLOCK + 4),
+                  leg2=(w + 1) * nb * (Q.BLOCK + 4),
+                  final=WIRE_ROWS * (Q.BLOCK + 4) + 4 * n)
+    nbytes["chain"] = sum(nbytes.values())
+    out = {}
+    for key, fn in (("sr_quant", leg1), ("leg2", leg2), ("final", final),
+                    ("chain", chain)):
+        src = torch.empty(nbytes[key] // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        out[f"wire_{key}_ms"] = time_ms(fn)
+        out[f"wire_{key}_copy_ms"] = time_ms(lambda: dst.copy_(src))
+        out[f"wire_{key}_bytes"] = nbytes[key]
+    return out
+
+
+def _wire_step_profile(dev) -> dict:
+    """Device time of the ``int8_sr`` wire's kernels over every live
+    bucket of one LM step (no collectives), from ``torch.profiler`` over
+    WIRE_PROFILE_REPS steps; run after every timed call of the
+    process."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+    from theanompi_tpu_torch.parallel import quantize as Q
+    from theanompi_tpu_torch.parallel.exchanger import (
+        BSP_Exchanger, blocks_per_shard,
+    )
+
+    model = TransformerLM(dict(LM_STEP_CFG), seed=0, device=dev)
+    order = model.exchange_order
+    sizes = BSP_Exchanger("int8_sr", bucket_bytes=int(
+        float(model.config.exchange_bucket_mb) * (1 << 20))).unit_sizes(
+        [model.params[i] for i in order],
+        [model.param_names[i] for i in order])
+    del model
+    gen = torch.Generator(device=dev).manual_seed(3)
+    chains = []
+    for n in sizes:
+        nb = blocks_per_shard(n, WIRE_WORLD, "int8_sr")
+        if nb is None:
+            continue
+        x = F.pad(torch.randn(n, generator=gen, device=dev),
+                  (0, WIRE_WORLD * nb * Q.BLOCK - n))
+        chains.append(_wire_chain(Q, x.view(WIRE_WORLD, nb, Q.BLOCK), n))
+
+    def step():
+        for leg1, leg2, final in chains:
+            leg1()
+            leg2()
+            final()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(WIRE_PROFILE_REPS):
+            step()
+        torch.cuda.synchronize()
+    by_name = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
+                e.device_time_total / 1e3 / WIRE_PROFILE_REPS)
+            count += 1
+    return dict(wire_step_buckets=len(chains),
+                wire_step_device_ms=sum(by_name.values()),
+                wire_step_kernels=count / WIRE_PROFILE_REPS,
+                wire_step_by_kernel=by_name)
+
+
 def _serve_ticks(dev) -> dict:
     """The flagship's decode tick (ms) on the fp32 and int8 pools:
     SERVE_ROUNDS runs of ``serve_requests()`` each, and their median;
@@ -480,10 +626,14 @@ def _child(steps, groups) -> dict:
         out.update(_paged_times(dev, time_ms, np.random.RandomState(7)))
     if "serve" in groups:
         out.update(_serve_ticks(dev))
+    if "wire" in groups:
+        out.update(_wire_times(dev, time_ms, np.random.RandomState(5)))
     if "--lm-step" in steps:
         out["lm_step_ms"] = _lm_step_ms(dev)
     if "--alexnet-step" in steps:
         out["alexnet_step_ms"] = _alexnet_step_ms(dev)
+    if "wire" in groups:  # profiled last: a profile slows what follows
+        out.update(_wire_step_profile(dev))
     return out
 
 
@@ -527,6 +677,7 @@ def main() -> int:
         mine = [r for r in runs if r["label"] == label]
         keys = [k for k in (mine[0] if mine else ())
                 if k.endswith("_per_step") or k.startswith("paged_")
+                or k.startswith("wire_") and k.endswith("_ms")
                 or ("_tick_ms" in k or "_host_ms" in k)
                 and not k.endswith("_rounds")
                 or k in ("lm_step_ms", "alexnet_step_ms")]
