@@ -125,17 +125,20 @@ Phases, each of which raises on failure (nothing is caught):
 11. wire kernels vs plain — the block-quantization kernels (int8
    round-to-nearest, int8 stochastic rounding with a fixed seed word,
    fp16 with a block scale, dequantize of int8 and fp16 payloads, and
-   leg 2 of the ``int8_sr`` wire in one launch) against their plain
-   versions, exact, at the shapes one bucket of 4 MB gives them at a
-   world of 2 (leg 1 (2, 2048, 256), leg 2 (2048, 256)) and at
-   AlexNet-128's largest bucket from its bucketing plan; the fused leg
-   2 also at world 4, at nb 1 and on inputs 16 bytes off their base,
-   each with a zero block and a block of half-way ties in the sum; the
+   leg 2 of each of the ``int8``, ``int8_sr`` and ``fp16s`` wires in
+   one launch) against their plain versions, exact, at the shapes one
+   bucket of 4 MB gives them at a world of 2 (leg 1 (2, 2048, 256),
+   leg 2 (2, 2048, 256) → (2048, 256)) and at AlexNet-128's largest
+   bucket from its bucketing plan; each fused leg 2 also at world 4, at
+   nb 1 and on inputs 16 bytes off their base, each with a zero block
+   and a block of half-way ties in the sum (fp16: and a block of tiny
+   magnitude whose quotients reach fp16's subnormals); the
    dequantize with the mean's divisor and a length n at worlds 2, 3 and
    4, n whole and short of a block, int8 and fp16.  Then timed (cold
    L2) per call at the 4 MB bucket and per LM step at a world of 2 on
    each kernel's path, beside the bytes bound and a ``copy_`` of the
-   same bytes after the same flush.  No single PyTorch call computes a
+   same bytes after the same flush; the quantizers and legs 2 also per
+   call at AlexNet-128's largest bucket, with their share of the bound.  No single PyTorch call computes a
    per-256-block amax quantization, so there is no library yardstick.
 12. LM train at a world of 2 on the one card — two processes (this
    script with ``--bsp2-rank``) with ``RANK``, ``WORLD_SIZE=2``,
@@ -150,15 +153,16 @@ Phases, each of which raises on failure (nothing is caught):
    parameter is bitwise equal across the ranks; on one step the first
    bucket's ``int8_sr`` mean lies within 2·max|g|/127 of the fp32
    ``all_reduce`` mean.  Then two steps each of ``int8`` with error
-   feedback and of ``fp16s`` (their launches checked the same way, the
-   parameters still equal).  Prints step ms, the wire's share of the
+   feedback and of ``fp16s`` (their launches checked the same way: 1
+   RN or fp16 quantize, 1 fused leg 2, 1 dequantize, and with error
+   feedback 1 more dequantize; the parameters still equal).  Prints step ms, the wire's share of the
    step and peak memory per rank, and rank 0's step profile with each
    wire kernel's device µs a launch inside the step and the wire
    kernels' device ms a step.
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
-``{"kernels": [...]}`` (13 hand-written kernels) — the paged kernel's
+``{"kernels": [...]}`` (15 hand-written kernels) — the paged kernel's
 fp32 instance (what the fp32 serving run runs) and the int8 kernel
 (launches from the int8 serving run), for each training kernel its
 bf16 instance (what the training paths run) summed over the launches
@@ -312,6 +316,12 @@ WIRE_SEED = 0x9E3779B9  # the SR check's fixed seed word
 # hash adds ~14 integer operations; fp16 a convert; dequantize 2
 WIRE_OPS = dict(block_quant_int8=6, block_quant_int8_sr=20,
                 block_quant_fp16=4, block_dequant=2)
+# each block strategy's leg-1 quantizer and fused leg 2 (kernel names)
+WIRE_QUANT = dict(int8="block_quant_int8", int8_sr="block_quant_int8_sr",
+                  fp16s="block_quant_fp16")
+WIRE_LEG2 = dict(int8="block_dequant_sum_quant_int8",
+                 int8_sr="block_dequant_sum_quant_int8_sr",
+                 fp16s="block_dequant_sum_quant_fp16")
 BSP2_CFG = dict(SERVE_CFG, batch_size=8, compute_dtype="bfloat16",
                 attn_impl="flash", n_synth_train=8, n_synth_val=1,
                 n_epochs=1, print_freq=4)
@@ -1319,9 +1329,7 @@ WIRE_PART = "wire quantize/leg 2/dequantize (kernel)"
 STEP_PARTS = (
     ("flash attention (kernel)", ("flash_fwd_kernel", "flash_dq_kernel",
                                   "flash_dkv_kernel")),
-    (WIRE_PART, ("quant_int8_kernel", "quant_int8_sr_rows",
-                 "quant_fp16_kernel", "dequant_sum_quant_int8_sr_rows",
-                 "dequant_rows")),
+    (WIRE_PART, ("quant_rows", "dequant_sum_quant_rows", "dequant_rows")),
     ("memcpy (host<->card; gloo stages the wire)", ("memcpy",)),
     ("lrn (kernel)", ("lrn_fwd_staged", "lrn_bwd_staged")),
     ("pool bwd (kernel)", ("maxpool_bwd_kernel",)),
@@ -1899,25 +1907,18 @@ def _wire_step_calls(sizes, strategy: str) -> dict:
     """Every launch one step gives each wire kernel at a world of
     WIRE_WORLD, name → shapes: a quantizer's rows, leg 2's (world, nb),
     a dequantize's (rows, n, divisor).  Per live bucket, leg 1
-    quantizes (world·nb) rows; the SR strategies run leg 2 as one
-    launch, the others as a dequantize of (world·nb) rows, their sum and
-    a quantize of nb rows; the last dequantize returns the bucket's n
-    elements divided by the world size."""
+    quantizes (world·nb) rows, leg 2 is one launch, and the last
+    dequantize returns the bucket's n elements divided by the world
+    size."""
     w = WIRE_WORLD
-    quant = {"int8_sr": "block_quant_int8_sr",
-             "fp16s": "block_quant_fp16"}.get(strategy, "block_quant_int8")
-    calls = {quant: [], "block_dequant": [],
-             "block_dequant_sum_quant_int8_sr": []}
+    quant, leg2 = WIRE_QUANT[strategy], WIRE_LEG2[strategy]
+    calls = {quant: [], leg2: [], "block_dequant": []}
     for n in sizes:
         nb = blocks_per_shard(n, w, strategy)
         if nb is None:
             continue
         calls[quant].append((w * nb,))
-        if strategy == "int8_sr":
-            calls["block_dequant_sum_quant_int8_sr"].append((w, nb))
-        else:
-            calls[quant].append((nb,))
-            calls["block_dequant"].append((w * nb, w * nb * Q.BLOCK, None))
+        calls[leg2].append((w, nb))
         calls["block_dequant"].append((w * nb, n, w))
     return calls
 
@@ -1952,6 +1953,33 @@ def _leg2_input(world: int, nb: int, gen: torch.Generator, dev) -> tuple:
         q_t[1, 1] = 1
         q_t[1, 1, 0] = 2
         s_t[0, 1], s_t[1, 1] = 1.0, 0.5
+    return q_t, s_t
+
+
+def _leg2_input_fp16(world: int, nb: int, gen: torch.Generator, dev
+                     ) -> tuple:
+    """The fp16 counterpart of ``_leg2_input``: every rank's fp16 payload
+    of ``_wire_input`` blocks, block 0 zero on every rank, block 1
+    summing to half-way ties of fp16 pinned at scale 1 (rank 0: ±(1 +
+    k·2⁻¹⁰) at scale 1, rank 1: ±1 at scale 2⁻¹¹, column 0 256 + 0),
+    and block 2 of rank 0 at amax 1e-20 with values down to 40 binades
+    below it (quotients in fp16's subnormals and below; the other ranks'
+    block 2 zero)."""
+    x = _wire_input(world * nb, gen, dev).view(world, nb, Q.BLOCK)
+    x[:, 0] = 0.0
+    k = torch.arange(Q.BLOCK, device=dev)
+    sign = torch.where(k % 3 == 0, -1.0, 1.0)
+    if nb > 2:
+        x[:, 2] = 0.0
+        x[0, 2] = 1e-20 * torch.exp2(-(k % 41).float()) * sign
+    q_t, s_t = Q.quantize_fp16(x)
+    if nb > 1 and world > 1:
+        q_t[:, 1], s_t[:, 1] = 0, 0.0
+        q_t[0, 1] = (sign * (1.0 + k / 1024.0)).half()
+        q_t[0, 1, 0] = 256.0
+        q_t[1, 1] = sign.half()
+        q_t[1, 1, 0] = 0.0
+        s_t[0, 1], s_t[1, 1] = 1.0, 2.0 ** -11
     return q_t, s_t
 
 
@@ -2000,19 +2028,37 @@ def _wire_exact(x: torch.Tensor, where: str) -> dict:
     return errs
 
 
-def _leg2_exact(q_t, s_t, where: str) -> float:
-    """The fused leg 2 against its plain version: payload and scales
+# each fused leg 2: (kernel call, plain call, maker of its gathered
+# shards (world, nb, gen, dev) → (q_t, s_t))
+_WIRE_LEG2 = {
+    "block_dequant_sum_quant_int8": (
+        Q.dequant_sum_quantize_int8, Q.dequant_sum_quantize_int8_plain,
+        _leg2_input),
+    "block_dequant_sum_quant_int8_sr": (
+        lambda q_t, s_t: Q.dequant_sum_quantize_int8_sr(q_t, s_t, WIRE_SEED),
+        lambda q_t, s_t: Q.dequant_sum_quantize_int8_sr_plain(q_t, s_t,
+                                                              WIRE_SEED),
+        _leg2_input),
+    "block_dequant_sum_quant_fp16": (
+        Q.dequant_sum_quantize_fp16, Q.dequant_sum_quantize_fp16_plain,
+        _leg2_input_fp16),
+}
+
+
+def _leg2_exact(name: str, q_t, s_t, where: str) -> float:
+    """A fused leg 2 against its plain version: payload and scales
     equal.  Returns max |kernel − plain|."""
-    qk, sk = Q.dequant_sum_quantize_int8_sr(q_t, s_t, WIRE_SEED)
-    qp, sp = Q.dequant_sum_quantize_int8_sr_plain(q_t, s_t, WIRE_SEED)
+    kern, plain, _ = _WIRE_LEG2[name]
+    qk, sk = kern(q_t, s_t)
+    qp, sp = plain(q_t, s_t)
     torch.cuda.synchronize()
     if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
         raise AssertionError(
-            f"block_dequant_sum_quant_int8_sr at {tuple(q_t.shape)} "
-            f"({where}): kernel != plain, {int((qk != qp).sum())} payload "
-            f"and {int((sk != sp).sum())} scale elements differ")
-    print(f"block_dequant_sum_quant_int8_sr at {tuple(q_t.shape)} ({where})"
-          ": payload and scales equal to the plain version")
+            f"{name} at {tuple(q_t.shape)} ({where}): kernel != plain, "
+            f"{int((qk != qp).sum())} payload and {int((sk != sp).sum())} "
+            "scale elements differ")
+    print(f"{name} at {tuple(q_t.shape)} ({where}): payload and scales "
+          "equal to the plain version")
     return max(float((qk.float() - qp.float()).abs().max()),
                float((sk - sp).abs().max()))
 
@@ -2032,12 +2078,13 @@ def _dequant_exact(q, s, divisor, n, where: str) -> float:
 def _wire_bytes(name: str, shape) -> int:
     """Bytes each input read once and each output written once: fp32
     in, int8 (fp16) payload and one fp32 scale per 256 out; leg 2 the
-    ranks' int8 shards and scales in, one payload and its scales out;
-    a dequantize the rows that hold its n elements in (int8 and their
-    scales), n fp32 out."""
-    if name == "block_dequant_sum_quant_int8_sr":
+    ranks' int8 (fp16) shards and scales in, one payload and its scales
+    out; a dequantize the rows that hold its n elements in (int8 and
+    their scales), n fp32 out."""
+    if name in _WIRE_LEG2:
         world, nb = shape
-        return (world + 1) * nb * (Q.BLOCK + 4)
+        payload = 2 if name.endswith("fp16") else 1
+        return (world + 1) * nb * (payload * Q.BLOCK + 4)
     if name == "block_dequant":
         _, n, _ = shape
         rows = -(-n // Q.BLOCK)
@@ -2050,11 +2097,12 @@ def _wire_bytes(name: str, shape) -> int:
 def _wire_ops(name: str, shape) -> int:
     """Operations: per element amax, divide, round, clamp (the SR hash
     ~14 more; fp16 a convert); leg 2 a convert, product and sum per
-    rank's element and the SR quantize of the sum; a dequantize a
+    rank's element and its wire's quantize of the sum; a dequantize a
     convert and a product (and the divide)."""
-    if name == "block_dequant_sum_quant_int8_sr":
+    if name in _WIRE_LEG2:
         world, nb = shape
-        return (3 * world + WIRE_OPS["block_quant_int8_sr"]) * nb * Q.BLOCK
+        quant = name.replace("dequant_sum_quant", "quant")
+        return (3 * world + WIRE_OPS[quant]) * nb * Q.BLOCK
     if name == "block_dequant":
         _, n, divisor = shape
         return (WIRE_OPS[name] + (divisor is not None)) * n
@@ -2065,11 +2113,10 @@ def _wire_ops(name: str, shape) -> int:
 def _wire_call(name: str, shape, gen, dev) -> tuple:
     """(kernel call, plain call) of one wire launch shape, on fresh
     inputs."""
-    if name == "block_dequant_sum_quant_int8_sr":
-        q_t, s_t = _leg2_input(*shape, gen, dev)
-        return (lambda: Q.dequant_sum_quantize_int8_sr(q_t, s_t, WIRE_SEED),
-                lambda: Q.dequant_sum_quantize_int8_sr_plain(q_t, s_t,
-                                                             WIRE_SEED))
+    if name in _WIRE_LEG2:
+        kern, plain, shards = _WIRE_LEG2[name]
+        q_t, s_t = shards(*shape, gen, dev)
+        return lambda: kern(q_t, s_t), lambda: plain(q_t, s_t)
     if name == "block_dequant":
         rows, n, divisor = shape
         q, s = Q.quantize_int8_sr(_wire_input(rows, gen, dev), WIRE_SEED)
@@ -2094,13 +2141,15 @@ WIRE_KERNELS = (("block_quant_int8", "int8", 107),
                 ("block_quant_int8_sr", "int8_sr", 134),
                 ("block_quant_fp16", "fp16s", 207),
                 ("block_dequant", "int8_sr", 218),
-                ("block_dequant_sum_quant_int8_sr", "int8_sr", 134))
+                ("block_dequant_sum_quant_int8", "int8", 107),
+                ("block_dequant_sum_quant_int8_sr", "int8_sr", 134),
+                ("block_dequant_sum_quant_fp16", "fp16s", 207))
 
 
 def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
     """The wire kernels against their plain versions, exact, at the LM's
     4 MB bucket (world 2) and at AlexNet-128's largest bucket, the fused
-    leg 2 and the dequantize with n and divisor at their edges, then
+    legs 2 and the dequantize with n and divisor at their edges, then
     their times per call and per LM step at a world of 2."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -2120,15 +2169,18 @@ def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
             print(f"wire kernels at {shape} ({where}): int8, int8_sr (seed "
                   f"{WIRE_SEED:#x}), fp16 payloads, scales and dequantized "
                   "values equal to the plain versions")
-    leg2 = [_leg2_exact(*_leg2_input(WIRE_WORLD, nb_lm, gen, dev), lm_where),
-            _leg2_exact(*_leg2_input(WIRE_WORLD, nb_alex, gen, dev),
-                        alex_where),
-            _leg2_exact(*_leg2_input(4, nb_lm, gen, dev), "world 4"),
-            _leg2_exact(*_leg2_input(WIRE_WORLD, 1, gen, dev), "nb 1")]
-    q_t, s_t = _leg2_input(WIRE_WORLD, 37, gen, dev)
-    leg2.append(_leg2_exact(_off16(q_t), _off16(s_t),
-                            "inputs 16 bytes off their base"))
-    errs["block_dequant_sum_quant_int8_sr"] = max(leg2)
+    for name, (_, _, shards) in _WIRE_LEG2.items():
+        leg2 = []
+        for world, nb, where in ((WIRE_WORLD, nb_lm, lm_where),
+                                 (WIRE_WORLD, nb_alex, alex_where),
+                                 (4, nb_lm, "world 4"),
+                                 (WIRE_WORLD, 1, "nb 1")):
+            leg2.append(_leg2_exact(name, *shards(world, nb, gen, dev),
+                                    where))
+        q_t, s_t = shards(WIRE_WORLD, 37, gen, dev)
+        leg2.append(_leg2_exact(name, _off16(q_t), _off16(s_t),
+                                "inputs 16 bytes off their base"))
+        errs[name] = max(leg2)
     deq = []
     for world in (WIRE_WORLD, 3, 4):
         q, s = Q.quantize_int8_sr(_wire_input(world * nb_lm, gen, dev).view(
@@ -2152,7 +2204,7 @@ def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
     per_call = dict(block_quant_int8=leg1, block_quant_int8_sr=leg1,
                     block_quant_fp16=leg1,
                     block_dequant=(WIRE_WORLD * nb_lm, n_lm, WIRE_WORLD),
-                    block_dequant_sum_quant_int8_sr=(WIRE_WORLD, nb_lm))
+                    **{name: (WIRE_WORLD, nb_lm) for name in _WIRE_LEG2})
     shapes = set(per_call.items())
     for name, path, _ in WIRE_KERNELS:
         shapes |= {(name, shape) for shape in steps[path][name]}
@@ -2161,6 +2213,16 @@ def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
         kern, plain = _wire_call(name, shape, gen, dev)
         nbytes = _wire_bytes(name, shape)
         times[name, shape] = (_time_ms(kern, flush), _time_ms(plain, flush))
+        if nbytes not in copies:
+            copies[nbytes] = _time_ms(_copy_call(nbytes, dev), flush)
+    # the quantizers and legs 2 at AlexNet-128's largest bucket, where
+    # bytes rather than launch latency bound a call (kernel and copy_)
+    big = {name: (WIRE_WORLD * nb_alex,) for name in WIRE_QUANT.values()}
+    big.update({name: (WIRE_WORLD, nb_alex) for name in _WIRE_LEG2})
+    for name, shape in big.items():
+        kern, _ = _wire_call(name, shape, gen, dev)
+        nbytes = _wire_bytes(name, shape)
+        times[name, shape] = (_time_ms(kern, flush), None)
         if nbytes not in copies:
             copies[nbytes] = _time_ms(_copy_call(nbytes, dev), flush)
     rows = []
@@ -2182,6 +2244,16 @@ def phase_wire_kernels(dev: torch.device, lm_sizes, alex_sizes) -> list:
             call_shape=list(call), call_ms=times[name, call][0],
             call_plain_ms=times[name, call][1], call_bound_ms=call_bound,
             call_copy_ms=copies[_wire_bytes(name, call)])
+        if name in big:
+            shape = big[name]
+            row.update(alex_shape=list(shape), alex_ms=times[name, shape][0],
+                       alex_bound_ms=_bound(_wire_bytes(name, shape),
+                                            _wire_ops(name, shape))[0],
+                       alex_copy_ms=copies[_wire_bytes(name, shape)])
+            print(f"{name} at {shape} ({alex_where}): kernel "
+                  f"{row['alex_ms']:.4f} ms, bound {row['alex_bound_ms']:.4f}"
+                  f" ms ({row['alex_bound_ms'] / row['alex_ms']:.3f} of it),"
+                  f" copy_ of the same bytes {row['alex_copy_ms']:.4f} ms")
         rows.append(row)
         print(f"{name}: max|err| {row['max_abs_err']:.1e} (exact); per call "
               f"at {call}: kernel {row['call_ms']:.4f} ms, plain "
@@ -2290,23 +2362,17 @@ def _bsp2_rank(out_path: str) -> int:
 
 def _want_launches(sizes, strategy: str, steps: int, ef: bool) -> dict:
     """Launch counts the bucket plan predicts over ``steps`` steps, per
-    live bucket and step: ``int8_sr`` 1 SR quantize, 1 fused leg 2 and 1
-    dequantize; the other block strategies 2 quantizes and 2
-    dequantizes; with error feedback one more dequantize (the leg-1
+    live bucket and step for every block strategy: 1 quantize (``int8``
+    RN, ``int8_sr`` SR, ``fp16s`` fp16), 1 fused leg 2 of that wire and
+    1 dequantize; with error feedback one more dequantize (the leg-1
     image)."""
     per = sum(blocks_per_shard(n, WIRE_WORLD, strategy) is not None
               for n in sizes) * steps
-    want = dict(quantize_int8=0, quantize_int8_sr=0, quantize_fp16=0,
-                dequantize=0, dequant_sum_quantize_int8_sr=0)
-    if strategy in ("int8_sr", "pallas_int8_sr"):
-        want.update(quantize_int8_sr=per, dequant_sum_quantize_int8_sr=per,
-                    dequantize=per)
-    else:
-        quant = ("quantize_fp16" if strategy in ("fp16s", "pallas_fp16s")
-                 else "quantize_int8")
-        want.update({quant: 2 * per, "dequantize": 2 * per})
-    if ef:
-        want["dequantize"] += per
+    want = {fn.__name__: 0 for fn in Q.WRAPPERS}
+    suffix = strategy.replace("pallas_", "").replace("fp16s", "fp16")
+    want.update({f"quantize_{suffix}": per,
+                 f"dequant_sum_quantize_{suffix}": per,
+                 "dequantize": per * (2 if ef else 1)})
     return want
 
 
@@ -2519,13 +2585,16 @@ def main() -> int:
     # launches: the default int8_sr run for its quantize and the
     # dequantize; the int8 (error feedback) and fp16s runs for theirs
     r0 = bsp2["ranks"][0]
+    int8, fp16 = (r0["more"][k]["launches"] for k in ("int8+ef", "fp16s"))
     wire_launches = dict(
-        block_quant_int8=r0["more"]["int8+ef"]["launches"]["quantize_int8"],
+        block_quant_int8=int8["quantize_int8"],
         block_quant_int8_sr=r0["launches"]["quantize_int8_sr"],
-        block_quant_fp16=r0["more"]["fp16s"]["launches"]["quantize_fp16"],
+        block_quant_fp16=fp16["quantize_fp16"],
         block_dequant=r0["launches"]["dequantize"],
+        block_dequant_sum_quant_int8=int8["dequant_sum_quantize_int8"],
         block_dequant_sum_quant_int8_sr=r0["launches"][
-            "dequant_sum_quantize_int8_sr"])
+            "dequant_sum_quantize_int8_sr"],
+        block_dequant_sum_quant_fp16=fp16["dequant_sum_quantize_fp16"])
     for row in wire_rows:
         kernels.append({
             "name": row["name"], "route": "cuda",

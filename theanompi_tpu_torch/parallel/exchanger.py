@@ -14,7 +14,7 @@ wire per bucket; without it, one wire per tensor.  Wire strategies:
   payload to whole shards of 256-element blocks and quantizes it (leg
   1), ``all_to_all_single`` hands shard p to rank p, each rank
   dequantizes and sums its shard in fp32, quantizes the sum (leg 2,
-  ``wire_leg2``: one launch for the SR strategies), and
+  ``wire_leg2``: one launch), and
   ``all_gather_into_tensor`` gives every rank every shard, which it
   dequantizes (``dequantize`` with the mean's division by the world
   size in the same pass).  Only payload and fp32 scales cross the wire: int8 ≈
@@ -94,13 +94,16 @@ def wire_leg2(strategy: str, q_t: torch.Tensor, s_t: torch.Tensor,
               seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Leg 2 of a block wire on this rank's gathered shards (``(world,
     nb, 256)`` payload, ``(world, nb)`` scales): the requantized fp32
-    sum over the ranks, ``(q2, s2)``.  The SR strategies run it as one
-    call (``dequant_sum_quantize_int8_sr``, ``seed`` the leg-2 word);
-    the others dequantize, sum and quantize in three."""
+    sum over the ranks, ``(q2, s2)``, in one call for every block
+    strategy (``seed``, the leg-2 word, is used by the SR strategies
+    only)."""
     if strategy in _SR_STRATEGIES:
         return Q.dequant_sum_quantize_int8_sr(q_t, s_t, seed)
-    quant, dequant = block_wire_kernels(strategy)
-    return quant(dequant(q_t, s_t).sum(dim=0), seed)
+    if strategy in _FP16S_STRATEGIES:
+        return Q.dequant_sum_quantize_fp16(q_t, s_t)
+    if strategy in _BLOCK_STRATEGIES:
+        return Q.dequant_sum_quantize_int8(q_t, s_t)
+    raise ValueError(f"{strategy!r} is not a block strategy")
 
 
 def blocks_per_shard(n: int, world: int, strategy: str) -> Optional[int]:

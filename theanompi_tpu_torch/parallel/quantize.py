@@ -24,12 +24,14 @@ and one fp32 scale per row.
   with ``n`` only the first ``n`` elements of the flattened result, and
   with ``divisor`` each divided by it (IEEE, after the product): the
   block wire's last step, the mean over the ranks, in one pass.
-- ``dequant_sum_quantize_int8_sr`` — leg 2 of the ``int8_sr`` wire in
-  one call: the gathered ``(world, nb, 256)`` int8 shards and ``(world,
-  nb)`` scales are dequantized, summed over the ranks in ascending
-  order (``((d₀ + d₁) + d₂) + …``, each product and sum rounded once:
-  what ``torch.sum(dim=0)`` gives on the CPU) and SR-quantized with
-  ``seed`` as ``quantize_int8_sr`` would quantize the ``(nb, 256)``
+- ``dequant_sum_quantize_int8``, ``dequant_sum_quantize_int8_sr`` and
+  ``dequant_sum_quantize_fp16`` — leg 2 of the ``int8``, ``int8_sr``
+  and ``fp16s`` wires, each in one call: the gathered ``(world, nb,
+  256)`` int8 (fp16) shards and ``(world, nb)`` scales are dequantized,
+  summed over the ranks in ascending order (``((d₀ + d₁) + d₂) + …``,
+  each product and sum rounded once: what ``torch.sum(dim=0)`` gives on
+  the CPU) and quantized as ``quantize_int8``, ``quantize_int8_sr``
+  (with ``seed``) or ``quantize_fp16`` would quantize the ``(nb, 256)``
   sum.  Only the payload and scales of the sum come out.
 - ``quantize_rows`` / ``dequantize_rows`` — the same int8
   round-to-nearest codec over the last axis of any width, in plain
@@ -158,20 +160,47 @@ def dequantize_plain(q: torch.Tensor, s: torch.Tensor,
     return out
 
 
+def _rank_sum_plain(q_t: torch.Tensor, s_t: torch.Tensor,
+                    what: str, payload: torch.dtype) -> torch.Tensor:
+    """``dequantize_plain(q_t, s_t).sum(dim=0)``, the sum written out in
+    ascending rank order so that it is that order on every device."""
+    _check_shards(q_t, s_t, what, payload)
+    d = dequantize_plain(q_t, s_t)
+    total = d[0]
+    for p in range(1, d.shape[0]):
+        total = total + d[p]
+    return total
+
+
+def dequant_sum_quantize_int8_plain(q_t: torch.Tensor, s_t: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(world, nb, 256) int8 and (world, nb) fp32 → the RN-quantized
+    ``(nb, 256)`` sum over the ranks: ``quantize_int8_plain(
+    dequantize_plain(q_t, s_t).sum(dim=0))``, the ranks in ascending
+    order."""
+    return quantize_int8_plain(_rank_sum_plain(
+        q_t, s_t, "dequant_sum_quantize_int8", torch.int8))
+
+
 def dequant_sum_quantize_int8_sr_plain(q_t: torch.Tensor, s_t: torch.Tensor,
                                        seed: int
                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(world, nb, 256) int8 and (world, nb) fp32 → the SR-quantized
     ``(nb, 256)`` sum over the ranks: ``quantize_int8_sr_plain(
-    dequantize_plain(q_t, s_t).sum(dim=0), seed)``, with the sum written
-    out in ascending rank order so that it is that order on every
-    device."""
-    _check_shards(q_t, s_t)
-    d = dequantize_plain(q_t, s_t)
-    total = d[0]
-    for p in range(1, d.shape[0]):
-        total = total + d[p]
-    return quantize_int8_sr_plain(total, seed)
+    dequantize_plain(q_t, s_t).sum(dim=0), seed)``, the ranks in
+    ascending order."""
+    return quantize_int8_sr_plain(_rank_sum_plain(
+        q_t, s_t, "dequant_sum_quantize_int8_sr", torch.int8), seed)
+
+
+def dequant_sum_quantize_fp16_plain(q_t: torch.Tensor, s_t: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(world, nb, 256) fp16 and (world, nb) fp32 → the fp16-quantized
+    ``(nb, 256)`` sum over the ranks: ``quantize_fp16_plain(
+    dequantize_plain(q_t, s_t).sum(dim=0))``, the ranks in ascending
+    order."""
+    return quantize_fp16_plain(_rank_sum_plain(
+        q_t, s_t, "dequant_sum_quantize_fp16", torch.float16))
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -196,13 +225,14 @@ def _check_length(q: torch.Tensor, n: Optional[int]) -> None:
                          "payload's elements")
 
 
-def _check_shards(q_t: torch.Tensor, s_t: torch.Tensor) -> None:
-    if (q_t.dtype != torch.int8 or q_t.dim() != 3 or q_t.shape[0] < 1
+def _check_shards(q_t: torch.Tensor, s_t: torch.Tensor, what: str,
+                  payload: torch.dtype) -> None:
+    if (q_t.dtype != payload or q_t.dim() != 3 or q_t.shape[0] < 1
             or q_t.shape[-1] != BLOCK or s_t.dtype != torch.float32
             or s_t.shape != q_t.shape[:-1] or s_t.device != q_t.device):
         raise ValueError(
-            f"dequant_sum_quantize_int8_sr: want (world, nb, {BLOCK}) int8 "
-            f"shards and (world, nb) float32 scales on one device; got "
+            f"{what}: want (world, nb, {BLOCK}) {payload} shards and "
+            f"(world, nb) float32 scales on one device; got "
             f"{q_t.dtype} {tuple(q_t.shape)} on {q_t.device}, {s_t.dtype} "
             f"{tuple(s_t.shape)} on {s_t.device}")
 
@@ -233,8 +263,10 @@ def _library() -> ctypes.CDLL:
         ("block_quant_fp16", 3, [rows]),
         ("block_dequant_int8", 3, [rows] + deq),
         ("block_dequant_fp16", 3, [rows] + deq),
+        ("block_dequant_sum_quant_int8", 4, [ctypes.c_int, rows]),
         ("block_dequant_sum_quant_int8_sr", 4,
          [ctypes.c_int, rows, ctypes.c_uint32]),
+        ("block_dequant_sum_quant_fp16", 4, [ctypes.c_int, rows]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * n_ptr + extra + [ptr]
@@ -334,23 +366,62 @@ def dequantize(q: torch.Tensor, s: torch.Tensor,
     return out
 
 
+def _leg2(name: str, q_t: torch.Tensor, s_t: torch.Tensor,
+          payload: torch.dtype, *extra
+          ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """A fused leg 2 on checked CUDA shards: ``(q2, s2, launched)``
+    (nothing launches for nb 0)."""
+    q_t, s_t = _dense(q_t), s_t.contiguous()
+    world, nb = q_t.shape[0], q_t.shape[1]
+    q2 = torch.empty((nb, BLOCK), dtype=payload, device=q_t.device)
+    s2 = torch.empty((nb,), dtype=torch.float32, device=q_t.device)
+    if nb:
+        _launch(name, (q_t, s_t, q2, s2), world, nb, *extra)
+    return q2, s2, nb > 0
+
+
+def dequant_sum_quantize_int8(q_t: torch.Tensor, s_t: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Leg 2 of the ``int8`` wire in one launch: the RN-quantized sum
+    over the ranks of gathered ``(world, nb, 256)`` int8 shards; see the
+    module docstring."""
+    what = "dequant_sum_quantize_int8"
+    if not _route(q_t, what):
+        return dequant_sum_quantize_int8_plain(q_t, s_t)
+    _check_shards(q_t, s_t, what, torch.int8)
+    q2, s2, ran = _leg2("block_dequant_sum_quant_int8", q_t, s_t, torch.int8)
+    dequant_sum_quantize_int8.launches += ran
+    return q2, s2
+
+
 def dequant_sum_quantize_int8_sr(q_t: torch.Tensor, s_t: torch.Tensor,
                                  seed: int
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Leg 2 of the ``int8_sr`` wire in one launch: the SR-quantized sum
     over the ranks of gathered ``(world, nb, 256)`` int8 shards; see the
     module docstring."""
-    if not _route(q_t, "dequant_sum_quantize_int8_sr"):
+    what = "dequant_sum_quantize_int8_sr"
+    if not _route(q_t, what):
         return dequant_sum_quantize_int8_sr_plain(q_t, s_t, seed)
-    _check_shards(q_t, s_t)
-    q_t, s_t = _dense(q_t), s_t.contiguous()
-    world, nb = q_t.shape[0], q_t.shape[1]
-    q2 = torch.empty((nb, BLOCK), dtype=torch.int8, device=q_t.device)
-    s2 = torch.empty((nb,), dtype=torch.float32, device=q_t.device)
-    if nb:
-        _launch("block_dequant_sum_quant_int8_sr", (q_t, s_t, q2, s2), world,
-                nb, int(seed) & _M32)
-        dequant_sum_quantize_int8_sr.launches += 1
+    _check_shards(q_t, s_t, what, torch.int8)
+    q2, s2, ran = _leg2("block_dequant_sum_quant_int8_sr", q_t, s_t,
+                        torch.int8, int(seed) & _M32)
+    dequant_sum_quantize_int8_sr.launches += ran
+    return q2, s2
+
+
+def dequant_sum_quantize_fp16(q_t: torch.Tensor, s_t: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Leg 2 of the ``fp16s`` wire in one launch: the fp16-quantized sum
+    over the ranks of gathered ``(world, nb, 256)`` fp16 shards; see the
+    module docstring."""
+    what = "dequant_sum_quantize_fp16"
+    if not _route(q_t, what):
+        return dequant_sum_quantize_fp16_plain(q_t, s_t)
+    _check_shards(q_t, s_t, what, torch.float16)
+    q2, s2, ran = _leg2("block_dequant_sum_quant_fp16", q_t, s_t,
+                        torch.float16)
+    dequant_sum_quantize_fp16.launches += ran
     return q2, s2
 
 
@@ -358,9 +429,12 @@ quantize_int8.launches = 0
 quantize_int8_sr.launches = 0
 quantize_fp16.launches = 0
 dequantize.launches = 0
+dequant_sum_quantize_int8.launches = 0
 dequant_sum_quantize_int8_sr.launches = 0
+dequant_sum_quantize_fp16.launches = 0
 WRAPPERS = (quantize_int8, quantize_int8_sr, quantize_fp16, dequantize,
-            dequant_sum_quantize_int8_sr)
+            dequant_sum_quantize_int8, dequant_sum_quantize_int8_sr,
+            dequant_sum_quantize_fp16)
 
 
 def reset_launches() -> None:

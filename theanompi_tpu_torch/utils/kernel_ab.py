@@ -55,22 +55,27 @@ the host has enqueued the call) and as the median of 30 calls:
   after one fp32 run under ``torch.profiler`` with CUDA activity
   (``_after_profile``: what a profile leaves behind for the runs after
   it);
-- ``wire``: the ``int8_sr`` block wire of one 4 MB bucket at a world
-  of 2 (``WIRE_ROWS`` rows of 256 fp32 in leg 1), without the
-  collectives (at a world of 2 the gathered shards have the shape of
-  the leg-1 payload, which stands in for them): the SR quantize of leg
-  1 (``wire_sr_quant_ms``); leg 2 (``wire_leg2_ms``), one
-  ``dequant_sum_quantize_int8_sr`` call where the tree has it, else its
-  three public calls ``quantize_int8_sr(dequantize(q_t, s_t).sum(dim=0),
-  w2)``; the last dequantize with the mean's divide (``wire_final_ms``),
-  ``dequantize(q_all, s_all, 2, n)`` where the tree takes a divisor,
-  else ``dequantize(q_all, s_all).view(-1)[:n] / 2``; the three in a
-  row (``wire_chain_ms``); beside each a ``copy_`` that moves the bytes
-  the call must move (``wire_*_copy_ms``).  Last in the child, after
-  every timed call, the same chain over every live bucket of the LM's
-  step (``LM_STEP_CFG``'s parameters, 4 MB buckets) under
+- ``wire``: the ``int8_sr``, ``int8`` and ``fp16s`` block wires
+  (``WIRE_CHAINS``) of one 4 MB bucket at a world of 2 (``WIRE_ROWS``
+  rows of 256 fp32 in leg 1), without the collectives (at a world of 2
+  the gathered shards have the shape of the leg-1 payload, which stands
+  in for them), each wire ``S`` in turn: the leg-1 quantize
+  (``wire_S_quant_ms``); leg 2 (``wire_S_leg2_ms``), one fused call
+  (``dequant_sum_quantize_int8_sr``, ``_int8``, ``_fp16``) where the
+  tree has it, else its three public calls ``quant(dequantize(q_t,
+  s_t).sum(dim=0))``; the last dequantize with the mean's divide
+  (``wire_S_final_ms``), ``dequantize(q_all, s_all, 2, n)`` where the
+  tree takes a divisor, else ``dequantize(q_all, s_all).view(-1)[:n] /
+  2``; the three in a row (``wire_S_chain_ms``); beside each a
+  ``copy_`` that moves the bytes the call must move
+  (``wire_S_*_copy_ms``), and all of them again after the reading
+  flush (``*_clean_ms``: L2 then holds no dirty lines, so the floor
+  that a write-back puts under a call of a few MB is gone).  Last in
+  the child, after every timed call, each wire's chain over every live
+  bucket of the LM's step (``LM_STEP_CFG``'s parameters, 4 MB buckets;
+  ``int8`` with its error-feedback image dequantize) under
   ``torch.profiler``, five times: the device time of its kernels a
-  step (``wire_step_device_ms``), by kernel, and their count;
+  step (``wire_S_step_device_ms``), by kernel, and their count;
 - with ``--lm-step``, the end-to-end training step of ``TransformerLM``
   at the serving flagship's width (d_model 512, 8 heads, 8 layers,
   vocab 4096, seq_len 1024), batch 8, bf16, flash, through
@@ -108,8 +113,9 @@ LRN_SHAPES = ((128, 32, 32, 96), (128, 15, 15, 256))
 LRN_HYPER = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
 ITERS = 30
 KERNEL_GROUPS = ("flash", "pool", "lrn", "paged", "serve", "wire")
-# the int8_sr wire of one 4 MB bucket at a world of 2: leg 1's rows, the
-# world, and the two legs' seed words
+# the block wires of one 4 MB bucket at a world of 2: the strategies,
+# leg 1's rows, the world, and the SR legs' seed words
+WIRE_CHAINS = ("int8_sr", "int8", "fp16s")
 WIRE_ROWS = 4096
 WIRE_WORLD = 2
 WIRE_SEEDS = (0x9E3779B9, 0x7F4A7C15)
@@ -325,38 +331,59 @@ def _lrn_times(dev, time_ms, rng) -> dict:
     return out
 
 
-def _wire_chain(Q, x, n: int):
-    """The three calls of the ``int8_sr`` wire on ``x`` ((world, nb, 256)
-    fp32, the first n elements live) in this tree's API:
-    ``(leg1, leg2, final)``, each a function of no arguments, leg 2 and
-    the last dequantize on the leg-1 payload standing in for the
-    gathered shards."""
+def _wire_chain(Q, x, n: int, strategy: str):
+    """The three calls of a block wire (``int8``, ``int8_sr`` or
+    ``fp16s``) on ``x`` ((world, nb, 256) fp32, the first n elements
+    live) in this tree's API: ``(leg1, leg2, final, image)``, each a
+    function of no arguments, leg 2 and the last dequantize on the
+    leg-1 payload standing in for the gathered shards; ``image`` is the
+    error-feedback image of leg 1 (``dequantize(q, s, n=n)``).  Leg 2
+    is the tree's fused call where it has one, else its three public
+    calls."""
     w1, w2 = WIRE_SEEDS
     world = x.shape[0]
-    q, s = Q.quantize_int8_sr(x, w1)
-    fused = getattr(Q, "dequant_sum_quantize_int8_sr", None)
+    quant = dict(int8=Q.quantize_int8, fp16s=Q.quantize_fp16,
+                 int8_sr=lambda t: Q.quantize_int8_sr(t, w1))[strategy]
+    requant = dict(int8_sr=lambda t: Q.quantize_int8_sr(t, w2)).get(
+        strategy, quant)
+    fused = getattr(Q, dict(int8="dequant_sum_quantize_int8",
+                            int8_sr="dequant_sum_quantize_int8_sr",
+                            fp16s="dequant_sum_quantize_fp16")[strategy],
+                    None)
+    q, s = quant(x)
 
     def leg1():
-        return Q.quantize_int8_sr(x, w1)
+        return quant(x)
 
-    if fused is not None:
+    if fused is None:
+        def leg2():
+            return requant(Q.dequantize(q, s).sum(dim=0))
+    elif strategy == "int8_sr":
         def leg2():
             return fused(q, s, w2)
-
-        def final():
-            return Q.dequantize(q, s, world, n)
     else:
         def leg2():
-            return Q.quantize_int8_sr(Q.dequantize(q, s).sum(dim=0), w2)
+            return fused(q, s)
 
+    if hasattr(Q, "dequant_sum_quantize_int8_sr"):  # a divisor and n
+        def final():
+            return Q.dequantize(q, s, world, n)
+
+        def image():
+            return Q.dequantize(q, s, n=n)
+    else:
         def final():
             return Q.dequantize(q, s).view(-1)[:n] / world
-    return leg1, leg2, final
+
+        def image():
+            return Q.dequantize(q, s).view(-1)[:n]
+    return leg1, leg2, final, image
 
 
 def _wire_times(dev, time_ms, rng) -> dict:
-    """ms of the ``int8_sr`` wire's calls at one 4 MB bucket, and of a
-    ``copy_`` of each call's bytes."""
+    """ms of each block wire's calls at one 4 MB bucket (WIRE_CHAINS'
+    strategies), and of a ``copy_`` of each call's bytes, each after the
+    writing flush and after the reading one (``_clean``)."""
     import numpy as np
     import torch
 
@@ -367,33 +394,39 @@ def _wire_times(dev, time_ms, rng) -> dict:
     x = torch.from_numpy((rng.randn(WIRE_ROWS, Q.BLOCK) * 10.0 ** rng.uniform(
         -6, 0, (WIRE_ROWS, 1))).astype(np.float32)).to(dev).view(w, nb,
                                                                  Q.BLOCK)
-    leg1, leg2, final = _wire_chain(Q, x, n)
-
-    def chain():
-        leg1()
-        leg2()
-        final()
-
-    nbytes = dict(sr_quant=WIRE_ROWS * (5 * Q.BLOCK + 4),
-                  leg2=(w + 1) * nb * (Q.BLOCK + 4),
-                  final=WIRE_ROWS * (Q.BLOCK + 4) + 4 * n)
-    nbytes["chain"] = sum(nbytes.values())
     out = {}
-    for key, fn in (("sr_quant", leg1), ("leg2", leg2), ("final", final),
-                    ("chain", chain)):
-        src = torch.empty(nbytes[key] // 2, dtype=torch.uint8, device=dev)
-        dst = torch.empty_like(src)
-        out[f"wire_{key}_ms"] = time_ms(fn)
-        out[f"wire_{key}_copy_ms"] = time_ms(lambda: dst.copy_(src))
-        out[f"wire_{key}_bytes"] = nbytes[key]
+    for strategy in WIRE_CHAINS:
+        leg1, leg2, final, _ = _wire_chain(Q, x, n, strategy)
+
+        def chain():
+            leg1()
+            leg2()
+            final()
+
+        pb = 2 if strategy == "fp16s" else 1  # payload bytes an element
+        nbytes = dict(quant=WIRE_ROWS * ((4 + pb) * Q.BLOCK + 4),
+                      leg2=(w + 1) * nb * (pb * Q.BLOCK + 4),
+                      final=WIRE_ROWS * (pb * Q.BLOCK + 4) + 4 * n)
+        nbytes["chain"] = sum(nbytes.values())
+        for key, fn in (("quant", leg1), ("leg2", leg2), ("final", final),
+                        ("chain", chain)):
+            src = torch.empty(nbytes[key] // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            tag = f"wire_{strategy}_{key}"
+            for clean in (False, True):
+                sfx = "_clean" if clean else ""
+                out[f"{tag}{sfx}_ms"] = time_ms(fn, clean)
+                out[f"{tag}_copy{sfx}_ms"] = time_ms(
+                    lambda: dst.copy_(src), clean)
+            out[f"{tag}_bytes"] = nbytes[key]
     return out
 
 
 def _wire_step_profile(dev) -> dict:
-    """Device time of the ``int8_sr`` wire's kernels over every live
-    bucket of one LM step (no collectives), from ``torch.profiler`` over
-    WIRE_PROFILE_REPS steps; run after every timed call of the
-    process."""
+    """Device time of each block wire's kernels over every live bucket of
+    one LM step (no collectives; ``int8`` with its error-feedback image
+    dequantize), from ``torch.profiler`` over WIRE_PROFILE_REPS steps a
+    wire; run after every timed call of the process."""
     import torch
     import torch.nn.functional as F
     from torch.autograd import DeviceType
@@ -413,39 +446,46 @@ def _wire_step_profile(dev) -> dict:
         [model.param_names[i] for i in order])
     del model
     gen = torch.Generator(device=dev).manual_seed(3)
-    chains = []
-    for n in sizes:
-        nb = blocks_per_shard(n, WIRE_WORLD, "int8_sr")
-        if nb is None:
-            continue
-        x = F.pad(torch.randn(n, generator=gen, device=dev),
-                  (0, WIRE_WORLD * nb * Q.BLOCK - n))
-        chains.append(_wire_chain(Q, x.view(WIRE_WORLD, nb, Q.BLOCK), n))
+    out = {}
+    for strategy in WIRE_CHAINS:
+        chains = []
+        for n in sizes:
+            nb = blocks_per_shard(n, WIRE_WORLD, strategy)
+            if nb is None:
+                continue
+            x = F.pad(torch.randn(n, generator=gen, device=dev),
+                      (0, WIRE_WORLD * nb * Q.BLOCK - n))
+            chains.append(_wire_chain(Q, x.view(WIRE_WORLD, nb, Q.BLOCK), n,
+                                      strategy))
 
-    def step():
-        for leg1, leg2, final in chains:
-            leg1()
-            leg2()
-            final()
+        def step():
+            for leg1, leg2, final, image in chains:
+                leg1()
+                if strategy == "int8":
+                    image()
+                leg2()
+                final()
 
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(WIRE_PROFILE_REPS):
-            step()
+        step()
         torch.cuda.synchronize()
-    by_name = {}
-    count = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
-                e.device_time_total / 1e3 / WIRE_PROFILE_REPS)
-            count += 1
-    return dict(wire_step_buckets=len(chains),
-                wire_step_device_ms=sum(by_name.values()),
-                wire_step_kernels=count / WIRE_PROFILE_REPS,
-                wire_step_by_kernel=by_name)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(WIRE_PROFILE_REPS):
+                step()
+            torch.cuda.synchronize()
+        by_name = {}
+        count = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
+                    e.device_time_total / 1e3 / WIRE_PROFILE_REPS)
+                count += 1
+        tag = f"wire_{strategy}_step"
+        out.update({f"{tag}_buckets": len(chains),
+                    f"{tag}_device_ms": sum(by_name.values()),
+                    f"{tag}_kernels": count / WIRE_PROFILE_REPS,
+                    f"{tag}_by_kernel": by_name})
+    return out
 
 
 def _serve_ticks(dev) -> dict:
