@@ -159,6 +159,32 @@ Phases, each of which raises on failure (nothing is caught):
    step and peak memory per rank, and rank 0's step profile with each
    wire kernel's device µs a launch inside the step and the wire
    kernels' device ms a step.
+13. launch — the CLI entry point (``theanompi_tpu_torch.launch``) with
+   checkpoints, a crash and a restart, and two ranks.  (a) Writes a
+   raw-shard ImageNet directory (``data.shards.write_shard_dir``: 8
+   train shards of 128 seeded synthetic 128 px images, no val split) in
+   a temporary directory.  (b) ``launch.main(["--preset",
+   "alexnet-bsp", "--devices", "1", "--config", {lrn_impl and
+   pool_grad 'pallas', data_dir, n_epochs 2}, "--checkpoint-dir", D,
+   "--keep-last", "1", "--restarts", "1"])``: batches through the
+   native ring loader (mirror in its C++ thread), a snapshot per epoch;
+   a ``TrainingFault`` is injected once at the third step of epoch 2
+   (``runtime.fault.FaultInjector``), and ``run_with_restart``'s second
+   attempt must resume at epoch 1 (not 0) and finish.  Checks: exactly
+   one ``ckpt_*.npz`` is left (``ckpt_0002``); the LRN and pool launch
+   counts equal the steps that ran (2 LRN forwards and backwards and 3
+   pool backwards a step: 8 + 2 + 8 steps); a fresh model that loads
+   the file holds the trained parameters bitwise.  (c) ``python -m
+   theanompi_tpu_torch.launch --preset alexnet-bsp --devices 2
+   --spawn-procs 2`` on this card (gloo on ``cuda:0``), synthetic data,
+   4 steps of batch 128 a rank on the ``int8`` wire with error
+   feedback: one checkpoint, written by rank 0 alone, whose ``ef_wire``
+   has a leading axis of 2, and parameters bitwise equal across the
+   ranks (each rank's record carries their SHA-1).  (d) Prints the wall
+   time of each part, the host's data-wait share of the raw-shard run
+   beside phase 6's synthetic run, and the time of one checkpoint
+   save: synchronous, and under ``AsyncCheckpointer`` the loop's stall
+   (the device→host copy) beside the write behind it.
 
 Prints, before the last line, a JSON line of the serving and training
 numbers and the kernel instances, then the JSON line
@@ -193,8 +219,11 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
-from theanompi_tpu_torch import BSP, cuda_build
+from theanompi_tpu_torch import BSP, cuda_build, launch
+from theanompi_tpu_torch.data.providers import _synthetic_classification
+from theanompi_tpu_torch.data.shards import write_shard_dir
 from theanompi_tpu_torch.models.alex_net import AlexNet
+from theanompi_tpu_torch.models.base import TpuModel
 from theanompi_tpu_torch.models.transformer import TransformerLM
 from theanompi_tpu_torch.ops import flash as FL
 from theanompi_tpu_torch.ops import lrn as LR
@@ -205,6 +234,9 @@ from theanompi_tpu_torch.parallel.exchanger import (
     BSP_Exchanger, blocks_per_shard,
 )
 from theanompi_tpu_torch.runtime.dist import destroy_process_group
+from theanompi_tpu_torch.runtime.fault import FaultInjector
+from theanompi_tpu_torch.runtime.recorder import Recorder
+from theanompi_tpu_torch.utils import checkpoint as ckpt
 from theanompi_tpu_torch.utils import kernel_ab as KA
 from theanompi_tpu_torch.utils.benchmark import (
     images_per_sec, measure_step_time,
@@ -331,6 +363,15 @@ BSP2_MORE = (("int8+ef", dict(exch_strategy="int8", error_feedback=True)),
 BSP2_MORE_STEPS = 2
 BSP2_TIMEOUT_S = 600
 BSP2_DEVICE = "cuda:0"  # both ranks on the one card
+# phase 13: the launcher over raw shards (one rank), then two ranks
+LAUNCH_STEPS, LAUNCH_EPOCHS = 8, 2  # shards of 128 images = steps an epoch
+LAUNCH_CRASH_AT = LAUNCH_STEPS + 3  # the third step of epoch 2
+LAUNCH_CFG = dict(lrn_impl="pallas", pool_grad="pallas",
+                  n_epochs=LAUNCH_EPOCHS, print_freq=4)
+LAUNCH2_CFG = dict(lrn_impl="pallas", pool_grad="pallas", n_synth_batches=4,
+                   n_epochs=1, print_freq=2, exch_strategy="int8",
+                   error_feedback=True)
+LAUNCH2_TIMEOUT_S = 600
 
 
 def phase_environment() -> None:
@@ -2505,6 +2546,190 @@ def phase_lm_bsp2(dev: torch.device) -> dict:
     return dict(wall_s=wall, ranks=res, want_launches=want)
 
 
+def _write_raw_imagenet(root: str) -> float:
+    """(a): LAUNCH_STEPS raw shards of 128 synthetic ImageNet-128 images
+    (the synthetic provider's class structure, seeded)."""
+    t0 = time.perf_counter()
+    size = AlexNet.default_config["image_size"]
+    batches = [_synthetic_classification(
+        AlexNet.default_config["batch_size"], (size, size, 3),
+        AlexNet.default_config["n_classes"], seed=SEED + i, proto_seed=SEED)
+        for i in range(LAUNCH_STEPS)]
+    write_shard_dir(os.path.join(root, "train"), batches)
+    return time.perf_counter() - t0
+
+
+def _launch_crash_restart(data_dir: str, ckpt_dir: str) -> dict:
+    """(b): the launcher with a crash injected once and a restart."""
+    plan = FaultInjector([(0, LAUNCH_CRASH_AT)])
+    seen, steps = [], [0]
+    real_iter, real_adjust = TpuModel.train_iter, TpuModel.adjust_hyperp
+
+    def train_iter(self, count, recorder):
+        plan.maybe_fail(self.rank, count)
+        steps[0] += 1
+        return real_iter(self, count, recorder)
+
+    def adjust_hyperp(self, epoch):
+        seen.append((self, epoch))
+        return real_adjust(self, epoch)
+
+    cfg = dict(LAUNCH_CFG, data_dir=data_dir)
+    LR.lrn_fwd.launches = LR.lrn_bwd.launches = PO.maxpool_bwd.launches = 0
+    TpuModel.train_iter, TpuModel.adjust_hyperp = train_iter, adjust_hyperp
+    t0 = time.perf_counter()
+    try:
+        rc = launch.main(["--preset", "alexnet-bsp", "--devices", "1",
+                          "--config", json.dumps(cfg), "--checkpoint-dir",
+                          ckpt_dir, "--keep-last", "1", "--restarts", "1"])
+        torch.cuda.synchronize()
+    finally:
+        TpuModel.train_iter, TpuModel.adjust_hyperp = real_iter, real_adjust
+    wall = time.perf_counter() - t0
+    launches = dict(lrn_fwd=LR.lrn_fwd.launches, lrn_bwd=LR.lrn_bwd.launches,
+                    maxpool_bwd=PO.maxpool_bwd.launches)
+    ran = LAUNCH_EPOCHS * LAUNCH_STEPS + LAUNCH_CRASH_AT - LAUNCH_STEPS - 1
+    epochs = [e for _, e in seen]
+    models = list(dict.fromkeys(m for m, _ in seen))
+    if rc != 0 or epochs != [0, 1, 1] or len(models) != 2:
+        raise AssertionError(f"launch: rc {rc}, epochs started {epochs} "
+                             f"by {len(models)} models; want [0, 1, 1] by "
+                             "2 (a crash in epoch 2, resumed at epoch 1)")
+    trained = models[-1]
+    if (trained.current_epoch != LAUNCH_EPOCHS or not trained.data.raw_meta
+            or trained.n_workers != 1):
+        raise AssertionError(f"launch: ended at epoch {trained.current_epoch}"
+                             f", raw {bool(trained.data.raw_meta)}")
+    want = dict(lrn_fwd=2 * ran, lrn_bwd=2 * ran, maxpool_bwd=3 * ran)
+    if steps[0] != ran or launches != want:
+        raise AssertionError(f"launch: {steps[0]} steps ran, launches "
+                             f"{launches}; want {ran} steps, {want}")
+    left = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+    if left != [f"ckpt_{LAUNCH_EPOCHS:04d}.npz"]:
+        raise AssertionError(f"launch: checkpoints left {left}, want one")
+    path = os.path.join(ckpt_dir, left[0])
+    fresh = AlexNet(config=dict(cfg), device=trained.device)
+    fresh.load_model(path)
+    for a, b in zip(fresh.params, trained.params):
+        if not torch.equal(a, b):
+            raise AssertionError("launch: the loaded parameters differ from "
+                                 "the trained ones")
+    rows = Recorder.load(os.path.join(ckpt_dir, "record_rank0.jsonl"))
+    epoch_s = sum(r["seconds"] for r in rows if r["kind"] == "epoch")
+    wait_s = sum(r["wait"] for r in rows if r["kind"] == "train")
+    return dict(wall_s=wall, steps=ran, launches=launches,
+                resumed_epochs=epochs, checkpoint=left[0],
+                resumed_epoch_s=epoch_s, resumed_wait_s=wait_s,
+                data_wait_share=wait_s / epoch_s,
+                model=fresh, checkpoint_path=path)
+
+
+def _save_times(model, root: str) -> dict:
+    """(d): one checkpoint of AlexNet-128, synchronous and async."""
+    t0 = time.perf_counter()
+    path = model.save_model(os.path.join(root, "sync.npz"))
+    sync = time.perf_counter() - t0
+    with ckpt.AsyncCheckpointer() as writer:
+        t0 = time.perf_counter()
+        model.save_model(os.path.join(root, "async.npz"), checkpointer=writer)
+        stall = time.perf_counter() - t0
+        writer.wait()
+        behind = time.perf_counter() - t0
+    return dict(sync_s=sync, async_stall_s=stall, async_total_s=behind,
+                bytes=os.path.getsize(path))
+
+
+def _launch_two_ranks(ckpt_dir: str) -> dict:
+    """(c): two ranks on this card through the CLI."""
+    log_path = ckpt_dir + ".log"
+    cmd = [sys.executable, "-m", "theanompi_tpu_torch.launch", "--preset",
+           "alexnet-bsp", "--devices", "2", "--spawn-procs", "2",
+           "--config", json.dumps(LAUNCH2_CFG), "--checkpoint-dir",
+           ckpt_dir]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), stdout=log, stderr=subprocess.STDOUT,
+            timeout=LAUNCH2_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        out = f.read()
+    if proc.returncode != 0:
+        print(out[-6000:])
+        raise AssertionError(f"launch --spawn-procs 2: exit "
+                             f"{proc.returncode}")
+    files = sorted(os.listdir(ckpt_dir))
+    want = ["ckpt_0001.npz", "record_rank0.jsonl", "record_rank1.jsonl"]
+    if files != want:
+        raise AssertionError(f"launch --spawn-procs 2: files {files}, want "
+                             f"{want} (one checkpoint, from rank 0)")
+    blob = ckpt.restore(os.path.join(ckpt_dir, "ckpt_0001.npz"))
+    ef = []
+    ckpt.map_tree(ef.append, blob["opt_state"]["ef_wire"])
+    if not ef or any(a.shape[0] != 2 for a in ef) or (
+            blob["torch_state"]["world"] != 2):
+        raise AssertionError("launch --spawn-procs 2: ef_wire leading axes "
+                             f"{sorted({a.shape[0] for a in ef})}, want 2")
+    digests = [[r["sha1"] for r in Recorder.load(os.path.join(
+        ckpt_dir, f"record_rank{k}.jsonl")) if r["kind"] == "params"]
+        for k in (0, 1)]
+    if len(digests[0]) != 1 or digests[0] != digests[1]:
+        raise AssertionError(f"launch --spawn-procs 2: parameters differ "
+                             f"across the ranks: {digests}")
+    if "gloo world of 2 on cuda:0" not in out:
+        raise AssertionError("launch --spawn-procs 2: not a gloo world of 2 "
+                             "on cuda:0")
+    steps = [r["iter"] for r in Recorder.load(os.path.join(
+        ckpt_dir, "record_rank0.jsonl")) if r["kind"] == "epoch"]
+    return dict(wall_s=wall, steps=steps[-1], ef_leaves=len(ef),
+                params_sha1=digests[0][0],
+                checkpoint_bytes=os.path.getsize(
+                    os.path.join(ckpt_dir, "ckpt_0001.npz")))
+
+
+def phase_launch(train: dict) -> dict:
+    """Phase 13; see the module docstring."""
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        data, one, two = (os.path.join(root, d) for d in ("data", "one",
+                                                          "two"))
+        write_s = _write_raw_imagenet(data)
+        res = _launch_crash_restart(data, one)
+        model = res.pop("model")
+        res["save"] = _save_times(model, root)
+        del model
+        destroy_process_group()
+        torch.cuda.empty_cache()
+        res["two_ranks"] = _launch_two_ranks(two)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["write_s"] = write_s
+    res.pop("checkpoint_path")
+    sv, tr = res["save"], res["two_ranks"]
+    print(f"launch: (a) {LAUNCH_STEPS} raw shards of 128 ImageNet-128 "
+          f"images written in {write_s:.2f} s; (b) launch.main --preset "
+          f"alexnet-bsp --devices 1 over them, {LAUNCH_EPOCHS} epochs of "
+          f"{LAUNCH_STEPS} steps, a crash injected at step {LAUNCH_CRASH_AT}"
+          f", restarted at epoch {res['resumed_epochs'][-1]}: "
+          f"{res['wall_s']:.2f} s, {res['steps']} steps ran, launches "
+          f"{res['launches']}, {res['checkpoint']} left and loaded "
+          "bitwise; (c) --spawn-procs 2 on this card (gloo, int8 + EF): "
+          f"{tr['wall_s']:.2f} s for {tr['steps']} steps, one checkpoint "
+          f"of {tr['checkpoint_bytes'] / 2**20:.0f} MiB from rank 0, "
+          f"ef_wire with a leading axis of 2 on its {tr['ef_leaves']} "
+          "leaves, parameters equal across the ranks")
+    print(f"  host waited on data: raw shards (native loader, resumed epoch)"
+          f" {res['resumed_wait_s']:.3f} s of {res['resumed_epoch_s']:.3f} s "
+          f"({100 * res['data_wait_share']:.1f} %); phase 6's synthetic run "
+          f"{100 * train['data_wait_share']:.1f} %")
+    print(f"  one checkpoint of AlexNet-128 ({sv['bytes'] / 2**20:.0f} MiB): "
+          f"sync save {sv['sync_s']:.3f} s; async: the loop stalls "
+          f"{sv['async_stall_s']:.3f} s, on disk after "
+          f"{sv['async_total_s']:.3f} s")
+    return res
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--bsp2-rank":
         return _bsp2_rank(sys.argv[2])
@@ -2538,6 +2763,7 @@ def main() -> int:
     wire_rows = phase_wire_kernels(dev, lm["wire_sizes"], train["wire_sizes"])
     destroy_process_group()
     bsp2 = phase_lm_bsp2(dev)
+    launched = phase_launch(train)
     k32 = kern[torch.float32]  # the serving path's pool dtype
     kernels = [{
         "name": "paged_decode_attention",
@@ -2619,7 +2845,7 @@ def main() -> int:
                           for r in flash_rows],
         "lrn_edges": lrn_edges, "pool_edges": pool_edges,
         "flash_edges": flash_edges,
-        "wire_kernels": wire_rows, "lm_bsp2": bsp2,
+        "wire_kernels": wire_rows, "lm_bsp2": bsp2, "launch": launched,
     }))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

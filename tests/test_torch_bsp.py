@@ -201,7 +201,7 @@ def test_alexnet_preset_matches_reference_and_runs():
     assert mine["rule_kwargs"] == ref["rule_kwargs"]
     assert (mine["rule"], mine["modelclass"]) == (ref["rule"],
                                                   ref["modelclass"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="--spawn-procs 8"):
         run_preset("alexnet-bsp", dict(CFG), device="cpu")  # 8 ranks
     model = run_preset("alexnet-bsp", dict(CFG, n_epochs=1), devices=1,
                        device="cpu", val_freq=0)

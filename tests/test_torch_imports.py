@@ -30,6 +30,9 @@ EXPECTED_MODULES = {
     "parallel.quantize",
     # slice 5: the int8 KV cache and sampled requests
     "serving.sampling",
+    # launcher, checkpoint/resume, fault tools, raw shards
+    "launch", "runtime.fault", "runtime.multiprocess", "utils.checkpoint",
+    "data.shards",
 }
 
 

@@ -29,19 +29,27 @@ counterpart is easy to find:
   (``TpuModel``) and ``AlexNet``.
 - ``data``                  — ``ImageNetData``, ``LMTextData`` and the
   prefetching loader.
+- ``data.shards``           — raw shard files and the native ring
+  loader (``native/shard_loader.cpp``, built with ``g++`` at first use).
 - ``runtime``               — config, the ``torch.distributed`` group
   (NCCL on the card, gloo on the CPU and for ranks that share a card),
-  the recorder.
+  the recorder (JSONL, TensorBoard mirror), ``fault`` (restart,
+  fault injection, the stall watchdog), ``multiprocess``
+  (``spawn_local``).
 - ``parallel``              — bucketing, ``BSP_Exchanger`` (fp32, cast
-  and block-quantized wires, error feedback), ``BSP_Worker`` and the
-  ``BSP`` rule.
+  and block-quantized wires, error feedback), ``BSP_Worker``
+  (checkpoints, resume, watchdog) and the ``BSP`` rule.
+- ``utils.checkpoint``      — checkpoint files in the reference's format
+  (v2), async writes, ``latest``/``prune``.
+- ``launch``                — ``python -m theanompi_tpu_torch.launch``:
+  presets, ``--spawn-procs``, ``--restarts``, ``--resume``.
 - ``parallel.quantize``     — block quantization of the wire (int8
   round-to-nearest, int8 stochastic rounding, fp16 with a block scale,
   dequantize): hand-written CUDA kernels (``csrc/block_quant.cu``) and
   their plain versions.
 - ``presets``, ``utils.benchmark`` — ``alexnet-bsp``; step time and
   images/s.
-- ``convert``               — JAX parameter pytrees → this port's state.
+- ``convert``               — JAX parameter pytrees ↔ this port's state.
 - ``serving``               — KV-cache engines and the continuous-
   batching scheduler (greedy picks).
 
@@ -55,10 +63,15 @@ Training, as in the reference's quick start::
                                 lrn_impl="pallas", pool_grad="pallas"))
     rule.wait()
 
-Every entry point runs on the card unless it is given ``device="cpu"``.
+or from the shell::
+
+    python -m theanompi_tpu_torch.launch --preset alexnet-bsp --devices 1
+
+Every entry point runs on the card unless it is given ``device="cpu"``
+(``--device cpu``).
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = ["BSP", "__version__"]
 

@@ -12,8 +12,11 @@ fixed ``RandomState(proto_seed)`` draw of ``n_classes`` images, 196 MB
 at ImageNet-128 with 1000 classes) are drawn once per process and
 kept, where the reference draws them anew for every batch.
 
-The raw-shard layout (``train/meta.json``, read by the reference's
-native ring loader) is not ported yet (ROADMAP A6).
+The raw-shard layout (``{train,val}/meta.json`` beside ``*.raw``
+files, written by ``data.shards.write_shard_dir``) is read through the
+native ring loader (``data.shards.RawShardReader``), which crops and
+mirrors each training image on its own thread with the reference's
+keyed draws; a train-only directory is valid.
 
 ``LMTextData`` yields the reference's ``(tokens, next_tokens)`` int32
 windows for the same seed, epoch and rank: the synthetic affine walk
@@ -29,6 +32,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from theanompi_tpu_torch.data.shards import RawShardReader, read_meta
 from theanompi_tpu_torch.ops.augment import np_crop_mirror
 
 
@@ -89,8 +93,10 @@ def _synthetic_classification(
 class ImageNetData:
     """ImageNet-style provider over ``.npz`` shard files
     (``data_dir/{train,val}/*.npz``, each with ``x`` (N,H,W,C) and ``y``
-    (N,)), or synthetic batches at ``image_size`` when ``data_dir`` is
-    absent.  ``batch_size`` is the GLOBAL batch."""
+    (N,)), over raw shards (``data_dir/train/meta.json``), or synthetic
+    batches at ``image_size`` when ``data_dir`` is absent.  Each file is
+    one GLOBAL batch (``batch_size``); ``shard_for_worker`` gives a
+    worker its ``rank::n`` slice of the epoch's shuffled files."""
 
     def __init__(
         self,
@@ -115,12 +121,22 @@ class ImageNetData:
         self.train_aug = train_aug
         self._rng = np.random.RandomState(seed)
         data_dir = data_dir or os.environ.get("IMAGENET_NPZ_DIR", "")
+        self.raw_meta = None
         if data_dir and os.path.isfile(
                 os.path.join(data_dir, "train", "meta.json")):
-            raise NotImplementedError(
-                "the raw-shard layout (train/meta.json) is not ported yet: "
-                "ROADMAP A6")
-        if data_dir and os.path.isdir(data_dir):
+            def _split(name):
+                d = os.path.join(data_dir, name)
+                if not os.path.isfile(os.path.join(d, "meta.json")):
+                    return None, []
+                return read_meta(d), sorted(
+                    os.path.join(d, f) for f in os.listdir(d)
+                    if f.endswith(".raw"))
+
+            train_meta, self.train_files = _split("train")
+            val_meta, self.val_files = _split("val")
+            self.raw_meta = {"train": train_meta, "val": val_meta}
+            self.synthetic = False
+        elif data_dir and os.path.isdir(data_dir):
             def _files(split):
                 d = os.path.join(data_dir, split)
                 return sorted(os.path.join(d, f) for f in os.listdir(d)
@@ -154,10 +170,22 @@ class ImageNetData:
                         f"{lp} maps {n_labels} classes but the model was "
                         f"configured with n_classes={self.n_classes}")
         self._order = np.arange(len(self.train_files))
+        self._worker_rank, self._n_workers = 0, 1
+
+    def shard_for_worker(self, rank: int, n_workers: int) -> None:
+        """Disjoint ``rank::n`` slice of the shuffled batch files (the
+        async rules' per-worker streams); the minimum is one file."""
+        n_mine = len(range(rank, len(self.train_files), n_workers))
+        _check_worker_shard(rank, n_workers, n_mine, 1, "batch files")
+        self._worker_rank, self._n_workers = int(rank), int(n_workers)
+
+    def _my_order(self) -> np.ndarray:
+        return _worker_slice(self._order, self._worker_rank, self._n_workers)
 
     @property
     def n_batch_train(self) -> int:
-        return len(self.train_files)
+        return len(range(self._worker_rank, len(self.train_files),
+                         self._n_workers))
 
     @property
     def n_batch_val(self) -> int:
@@ -200,11 +228,37 @@ class ImageNetData:
             x = x[:, off: off + c, off: off + c, :]
         return self._normalize(x)
 
+    def _raw_batches(self, split: str, paths, train: bool):
+        meta = self.raw_meta[split]
+        if meta is None or not paths:
+            return
+        if train and self.train_aug and (self.crop_size or self.mirror):
+            # crop and mirror inside the loader's thread; a fresh seed
+            # per epoch pass, drawn as the reference draws it
+            reader = RawShardReader(
+                paths, meta["x_shape"], meta["y_shape"],
+                crop_size=self.crop_size, mirror=self.mirror,
+                aug_seed=int(self._rng.randint(0, 2**31 - 1)))
+            for x, y in reader:
+                # the mean is per channel, so it commutes with the crop
+                yield (self._normalize(x[: self.batch_size]),
+                       y[: self.batch_size])
+            return
+        reader = RawShardReader(paths, meta["x_shape"], meta["y_shape"])
+        for x, y in reader:
+            x, y = x[: self.batch_size], y[: self.batch_size]
+            yield self._postprocess(x, train), y
+
     def train_batches(self):
-        return (self._load(self.train_files[i], train=True)
-                for i in self._order)
+        order = self._my_order()
+        if self.raw_meta is not None:
+            return self._raw_batches(
+                "train", [self.train_files[i] for i in order], train=True)
+        return (self._load(self.train_files[i], train=True) for i in order)
 
     def val_batches(self):
+        if self.raw_meta is not None:
+            return self._raw_batches("val", self.val_files, train=False)
         return (self._load(f, train=False) for f in self.val_files)
 
 

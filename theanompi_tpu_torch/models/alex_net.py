@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from theanompi_tpu_torch import convert
 from theanompi_tpu_torch.data.providers import ImageNetData
 from theanompi_tpu_torch.models.base import TpuModel
 from theanompi_tpu_torch.ops import layers as L
@@ -37,6 +38,9 @@ class AlexNet(TpuModel):
         pool_grad="native",  # native|pallas (mask: ROADMAP A2)
         stem="conv",  # 's2d': ROADMAP A2
     )
+    # checkpoints: conv weights HWIO in the reference's tree
+    params_to_reference = staticmethod(convert.alexnet_params_to_jax)
+    params_from_reference = staticmethod(convert.alexnet_params_from_jax)
 
     def build_data(self):
         cfg = self.config

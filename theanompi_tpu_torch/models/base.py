@@ -33,17 +33,27 @@ per-rank fp32 residual per parameter in ``opt_state['ef_wire']``, in
 the exchange's order (the reference's recurrence: send ``g + residual``, keep what the wire's
 first leg dropped).  Not yet (each raises with its ROADMAP item):
 ZeRO-1, in-DAG issue, the two-level wire (A9), gradient accumulation
-and clipping (A4), on-device augmentation (A3), checkpoints (A6).
+and clipping (A4), on-device augmentation (A3).
+
+Checkpoints (``checkpoint_state``, ``save_model``, ``load_model``)
+carry the reference's tree in the reference's layout (``convert``), so
+a file written by either package loads in the other.  The port's own
+generator states go under one more key, ``TORCH_STATE_KEY``, which the
+reference ignores.  ``save_model`` is collective: every rank calls it
+(rank 0 writes), because the error-feedback residuals and the
+generator states of all ranks are gathered into the file.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from theanompi_tpu_torch import convert
 from theanompi_tpu_torch.data.loader import prefetch_to_device
 from theanompi_tpu_torch.device import DeviceLike, resolve_dtype
 from theanompi_tpu_torch.ops import losses
@@ -118,6 +128,53 @@ def _check_error_feedback(cfg) -> None:
         raise ValueError(f"error_feedback does not support: {', '.join(bad)}")
 
 
+# the port's own state in a checkpoint (the reference ignores the key)
+TORCH_STATE_KEY = "torch_state"
+
+
+def _seed_words(seed: int) -> np.ndarray:
+    """``seed`` as the two uint32 words of the reference's
+    ``jax.random.PRNGKey(seed)`` (a checkpoint's ``rng``)."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    dtype=np.uint32)
+
+
+def _leaves(tree):
+    """Leaves in the reference's flattening order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _structure(tree):
+    """Keys of a params tree, leaves dropped (the structure check)."""
+    if isinstance(tree, dict):
+        return {k: _structure(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_structure(v) for v in tree]
+    return None
+
+
+def _shapes(tree) -> list:
+    return [tuple(np.shape(leaf)) for leaf in _leaves(tree)]
+
+
+def _stack(trees: list):
+    """Per-rank trees of tensors → one tree, each leaf stacked on a
+    leading rank axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
 def _reference_order(names):
     """Indices of ``names`` (``"{layer}.{key}…"``) in the reference's
     pytree flattening order: list indices numerically, dict keys
@@ -148,13 +205,12 @@ class TpuModel:
         self.batch_size = int(cfg.batch_size)
         self.global_batch = self.batch_size * self.n_workers
         self.n_epochs = int(cfg.n_epochs)
-        # dropout masks: one stream per rank (the reference folds the
-        # rank into its step key)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(cfg.seed) * 1_000_003 + self.rank)
-        # stochastic-rounding seed words of the wire: one stream per rank
-        self.wire_generator = torch.Generator().manual_seed(
-            (int(cfg.seed) * 1_000_003 + self.rank) ^ 0x5EED_0000_0000)
+        self.wire_generator = torch.Generator()
+        self._seed_generators(int(cfg.seed))
+        # the reference's rng words (a checkpoint's ``rng``); the port
+        # draws from its own generators and does not advance them
+        self.rng = _seed_words(int(cfg.seed))
         self.data = None
         self.net: Optional[nn.Module] = None
         self.input_shape: Optional[Tuple[int, ...]] = None
@@ -168,6 +224,18 @@ class TpuModel:
         self._train_it = None
         self._val_it = None
         self.current_epoch = 0
+
+    def _seed_generators(self, seed: int) -> None:
+        # one stream per rank (the reference folds the rank into its
+        # step key), in the 63 bits a generator's seed takes
+        per_rank = (seed * 1_000_003 + self.rank) % (1 << 63)
+        self.generator.manual_seed(per_rank)  # dropout masks
+        # stochastic-rounding seed words of the wire
+        self.wire_generator.manual_seed(per_rank ^ 0x5EED_0000_0000)
+
+    # the reference's params list ↔ this net's state (``convert``)
+    params_to_reference = staticmethod(convert.params_to_jax)
+    params_from_reference = staticmethod(convert.params_from_jax)
 
     # ---- subclass hooks ---------------------------------------------------
     def build_data(self) -> None:
@@ -374,6 +442,190 @@ class TpuModel:
         optim_lib.set_lr(
             self.opt_state,
             self.lr_schedule(self.current_epoch) * self._lr_scale)
+
+    # ---- checkpoint -----------------------------------------------------
+    def _reference_tree(self, tensors) -> List[dict]:
+        """Per-parameter tensors (this net's order) → the reference's
+        params list and layout."""
+        named = {f"net.{n}": t.detach()
+                 for n, t in zip(self.param_names, tensors)}
+        return self.params_to_reference(named, len(self.net))
+
+    def _from_reference_tree(self, tree) -> List[torch.Tensor]:
+        """The reference's params list (numpy leaves) → fp32 CPU tensors
+        in this net's order."""
+        named = self.params_from_reference(tree)
+        return [named[f"net.{n}"] for n in self.param_names]
+
+    def _gather(self, obj) -> list:
+        """``obj`` of every rank, in rank order (collective)."""
+        if self.n_workers == 1:
+            return [obj]
+        out = [None] * self.n_workers
+        dist.all_gather_object(out, obj, group=self.world.group)
+        return out
+
+    def _ef_reference(self):
+        """Every rank's error-feedback residuals as the reference keeps
+        them: the params tree, each leaf with a leading ``world`` axis
+        (collective: the residuals are gathered from all ranks)."""
+        order, ef = self.exchange_order, self.opt_state["ef_wire"]
+        flat = torch.cat([e.reshape(-1) for e in ef])
+        if self.n_workers == 1:
+            rows = [flat]
+        else:
+            out = flat.new_empty(self.n_workers * flat.numel())
+            dist.all_gather_into_tensor(out, flat, group=self.world.group)
+            rows = out.view(self.n_workers, -1).unbind(0)
+        trees = []
+        for row in rows:
+            mine: List[Optional[torch.Tensor]] = [None] * len(self.params)
+            for j, piece in enumerate(row.split([e.numel() for e in ef])):
+                mine[order[j]] = piece.view(ef[j].shape)
+            trees.append(self._reference_tree(mine))
+        return _stack(trees)
+
+    def checkpoint_state(self) -> dict:
+        """The training-state tree a checkpoint carries: the reference's
+        ``params`` (list of per-layer dicts, reference layout),
+        ``net_state``, ``opt_state`` (``velocity`` in the same layout,
+        ``lr`` fp32, ``step`` int32, ``ef_wire`` with a leading
+        ``world`` axis under error feedback), ``epoch`` and ``rng``;
+        and under ``TORCH_STATE_KEY`` this port's generator states (every
+        rank's dropout and wire generators, the data provider's
+        shuffling/augmentation state).  Collective when the world is
+        larger than 1: every rank calls it."""
+        opt = {
+            "velocity": self._reference_tree(self.opt_state["velocity"]),
+            "lr": np.asarray(self.opt_state["lr"], np.float32),
+            "step": np.asarray(self.opt_state["step"], np.int32),
+        }
+        if "ef_wire" in self.opt_state:
+            opt["ef_wire"] = self._ef_reference()
+        gens = self._gather((self.generator.get_state().numpy(),
+                             self.wire_generator.get_state().numpy()))
+        mine = {"world": int(self.n_workers),
+                "generator": np.stack([g[0] for g in gens]),
+                "wire_generator": np.stack([g[1] for g in gens])}
+        data_rng = getattr(self.data, "_rng", None)
+        if data_rng is not None:
+            _, keys, pos, has_gauss, cached = data_rng.get_state()
+            mine["data_rng"] = {"keys": keys, "pos": int(pos),
+                                "has_gauss": int(has_gauss),
+                                "cached_gaussian": float(cached)}
+        return {
+            "params": self._reference_tree(self.params),
+            # no layer of the port's models keeps state beside its
+            # parameters (the reference's are empty dicts too)
+            "net_state": [{} for _ in range(len(self.net))],
+            "opt_state": opt,
+            "epoch": int(self.current_epoch),
+            "rng": self.rng,
+            TORCH_STATE_KEY: mine,
+        }
+
+    def save_model(self, path: str, checkpointer=None) -> str:
+        """Snapshot to ``path``.  Every rank calls it (the state is
+        gathered from all ranks); rank 0 writes.  With a
+        ``checkpointer`` (``utils.checkpoint.AsyncCheckpointer``) the
+        device→host copy happens now and the disk write on its
+        thread."""
+        from theanompi_tpu_torch.utils import checkpoint
+
+        state = self.checkpoint_state()
+        if self.rank != 0:
+            return path
+        if checkpointer is not None:
+            checkpointer.save(path, state)
+            return path
+        return checkpoint.save(path, state)
+
+    def load_model(self, path: str) -> None:
+        """Load a checkpoint written by this port or by the reference
+        (the same refusals and messages as the reference's)."""
+        from theanompi_tpu_torch.utils import checkpoint
+
+        blob = checkpoint.restore(path)
+        if _structure(blob["params"]) != _structure(
+                self._reference_tree(self.params)):
+            raise ValueError(
+                f"checkpoint {path!r} has a different params structure than "
+                f"this model — an architecture config changed between save "
+                "and load (e.g. GoogLeNet aux_heads, WResNet depth). "
+                "Rebuild the model with the config the checkpoint was "
+                "trained with."
+            )
+        ck_opt = blob["opt_state"]
+        ck_ef = None
+        if isinstance(ck_opt, dict) and "ef_wire" in ck_opt:
+            ck_ef = ck_opt["ef_wire"]
+            ck_opt = {k: v for k, v in ck_opt.items() if k != "ef_wire"}
+        my_opt = {"velocity": self._reference_tree(self.opt_state["velocity"]),
+                  "lr": 0.0, "step": 0}
+        if (not isinstance(ck_opt, dict) or set(ck_opt) != set(my_opt)
+                or _shapes(ck_opt) != _shapes(my_opt)):
+            raise ValueError(
+                f"checkpoint {path!r} has a different optimizer-state "
+                "layout than this model — the optimizer or zero1 config "
+                "changed between save and load (zero1 stores flat "
+                "dp-sharded moments). Rebuild with the saving config."
+            )
+        had_ef = "ef_wire" in self.opt_state
+        with torch.no_grad():
+            for p, t in zip(self.params,
+                            self._from_reference_tree(blob["params"])):
+                p.copy_(t)
+            for v, t in zip(self.opt_state["velocity"],
+                            self._from_reference_tree(ck_opt["velocity"])):
+                v.copy_(t)
+        self.opt_state["lr"] = float(ck_opt["lr"])
+        self.opt_state["step"] = int(ck_opt["step"])
+        self.opt_state.pop("ef_wire", None)
+        if ck_ef is not None:
+            lead = int(np.shape(next(_leaves(ck_ef)))[0])
+            if not bool(self.config.get("error_feedback", False)):
+                print("[load_model] dropping ef_wire residuals: this model "
+                      "has error_feedback=False", flush=True)
+            elif lead != self.n_workers:
+                print(f"[load_model] dropping ef_wire residuals: checkpoint "
+                      f"world {lead} != this group's {self.n_workers}",
+                      flush=True)
+            else:
+                from theanompi_tpu_torch.utils.checkpoint import map_tree
+
+                row = self._from_reference_tree(
+                    map_tree(lambda a: a[self.rank], ck_ef))
+                self.opt_state["ef_wire"] = [
+                    row[i].to(self.device) for i in self.exchange_order]
+        if ("ef_wire" in self.opt_state) != had_ef:
+            self.train_fn = None  # compile_train re-creates the residuals
+        self.current_epoch = int(blob["epoch"])
+        self.rng = np.asarray(blob["rng"], np.uint32).reshape(2)
+        self._restore_generators(blob.get(TORCH_STATE_KEY), path)
+
+    def _restore_generators(self, mine: Optional[dict], path: str) -> None:
+        """This rank's generator states from the file when it was
+        written by this port at this world size; otherwise (a reference
+        file, another world) the generators are seeded from the file's
+        ``rng`` words as ``__init__`` seeds them from ``seed``."""
+        if mine is None or int(mine["world"]) != self.n_workers:
+            if mine is not None:
+                print(f"[load_model] {path}: generator states of a world of "
+                      f"{int(mine['world'])}; seeding this world of "
+                      f"{self.n_workers} from the file's rng words",
+                      flush=True)
+            self._seed_generators((int(self.rng[0]) << 32) | int(self.rng[1]))
+            return
+        self.generator.set_state(torch.from_numpy(
+            np.ascontiguousarray(mine["generator"][self.rank])))
+        self.wire_generator.set_state(torch.from_numpy(
+            np.ascontiguousarray(mine["wire_generator"][self.rank])))
+        data_rng = getattr(self.data, "_rng", None)
+        if data_rng is not None and "data_rng" in mine:
+            d = mine["data_rng"]
+            data_rng.set_state(("MT19937", d["keys"], int(d["pos"]),
+                                int(d["has_gauss"]),
+                                float(d["cached_gaussian"])))
 
     def describe(self) -> str:
         cfg = self.config

@@ -11,10 +11,11 @@
 one rank on one device.  ``devices`` is the number of ranks; a single
 process with no launcher environment is a world of 1, and a larger
 world is started by a launcher that sets ``RANK``/``WORLD_SIZE``/
-``MASTER_ADDR``/``MASTER_PORT`` for every rank (``launch.py
---spawn-procs`` is not ported yet, ROADMAP A6).  ``device`` defaults to
-the card; ``device="cpu"`` runs on the CPU (gloo).  EASGD and GOSGD are
-not ported yet (ROADMAP A10).
+``MASTER_ADDR``/``MASTER_PORT`` for every rank (``python -m
+theanompi_tpu_torch.launch --spawn-procs N``).  ``device`` defaults to
+the card; ``device="cpu"`` runs on the CPU (gloo).  The remaining
+keywords go to ``BSP_Worker`` (checkpoints, resume, the watchdog,
+TensorBoard).  EASGD and GOSGD are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ def _world_for(devices, world) -> None:
     if n != world.size:
         raise NotImplementedError(
             f"devices={devices!r} asks for {n} ranks but this process is "
-            f"in a world of {world.size}; start one process per rank with "
-            "a launcher (launch.py --spawn-procs is ROADMAP A6)")
+            f"in a world of {world.size}; start one process per rank: "
+            f"python -m theanompi_tpu_torch.launch --devices {n} "
+            f"--spawn-procs {n} ...")
 
 
 class Rule:

@@ -13,6 +13,13 @@ host's enqueue of the step unless something in it waits for the device
 the data loader.  Throughput comes from a device-synchronized wall
 clock (``utils.benchmark``).  ``totals`` keeps each segment's seconds
 over the whole run (the print window's sums are reset at each print).
+
+``log_event`` records one-off rows (memory snapshots, …) beside the
+epoch rows; ``save`` writes the record as JSONL and ``load`` reads it
+back.  With ``tensorboard_dir`` the record is mirrored to TensorBoard
+event files through ``torch.utils.tensorboard``, as the reference
+mirrors it; when that writer is unavailable the recorder says so once
+and keeps the JSONL record only.
 """
 
 from __future__ import annotations
@@ -27,11 +34,22 @@ PHASES = ("calc", "comm", "wait", "load")
 
 class Recorder:
     def __init__(self, print_freq: int = 40, rank: int = 0,
-                 verbose: bool = True, save_dir: Optional[str] = None):
+                 verbose: bool = True, save_dir: Optional[str] = None,
+                 tensorboard_dir: Optional[str] = None):
         self.print_freq = int(print_freq)
         self.rank = rank
         self.verbose = verbose
         self.save_dir = save_dir
+        self._tb = None
+        if tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=tensorboard_dir)
+            except Exception as e:
+                print(f"tensorboard writer unavailable "
+                      f"({type(e).__name__}: {e}); recording JSONL only",
+                      flush=True)
         self._t0: Dict[str, float] = {}
         self._acc: Dict[str, float] = {p: 0.0 for p in PHASES}
         self.totals: Dict[str, float] = {p: 0.0 for p in PHASES}
@@ -65,6 +83,8 @@ class Recorder:
               if self.epoch_start is not None else 0.0)
         if self.verbose and self.rank == 0:
             print(f"epoch {epoch} took {dt:.2f}s", flush=True)
+        if self._tb is not None:
+            self._tb.add_scalar("epoch/seconds", dt, epoch)
         self.events.append({"kind": "epoch", "epoch": epoch, "iter": count,
                             "seconds": dt})
         self.epoch_start = None
@@ -87,6 +107,11 @@ class Recorder:
             **{p: self._acc.get(p, 0.0) for p in PHASES},
         }
         self.history.append(row)
+        if self._tb is not None:
+            self._tb.add_scalar("train/cost", row["cost"], count)
+            self._tb.add_scalar("train/error", row["error"], count)
+            for p in PHASES:
+                self._tb.add_scalar(f"time/{p}", row[p], count)
         if self.verbose and self.rank == 0:
             t = {p: row[p] for p in PHASES}
             print(
@@ -100,12 +125,29 @@ class Recorder:
         for p in PHASES:
             self._acc[p] = 0.0
 
+    # ---- one-off events -------------------------------------------------
+    def log_event(self, kind: str, **fields) -> None:
+        """Record a structured one-off row (saved with its own
+        ``kind``; printed on rank 0)."""
+        self.events.append({"kind": kind, **fields})
+        if self._tb is not None:
+            self._tb.add_text(f"event/{kind}", json.dumps(fields))
+        if self.verbose and self.rank == 0:
+            body = " ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in fields.items())
+            print(f"[{kind}] {body}", flush=True)
+
     # ---- val metrics ----------------------------------------------------
     def val_error(self, count: int, cost: float, error: float,
                   error_top5: float = 0.0) -> None:
         self.val_history.append({"iter": count, "cost": float(cost),
                                  "error": float(error),
                                  "error_top5": float(error_top5)})
+        if self._tb is not None:
+            self._tb.add_scalar("val/cost", float(cost), count)
+            self._tb.add_scalar("val/error", float(error), count)
+            self._tb.add_scalar("val/error_top5", float(error_top5), count)
 
     def print_val_info(self, count: int) -> None:
         if self.val_history and self.verbose and self.rank == 0:
@@ -131,4 +173,18 @@ class Recorder:
                 f.write(json.dumps({"kind": "train", **row}) + "\n")
             for row in self.val_history:
                 f.write(json.dumps({"kind": "val", **row}) + "\n")
+        if self._tb is not None:
+            self._tb.flush()
         return path
+
+    def close(self) -> None:
+        """Release the TensorBoard writer (no-op without one)."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
+    @staticmethod
+    def load(path: str) -> List[dict]:
+        """The rows of a saved record."""
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
